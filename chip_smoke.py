@@ -1,0 +1,389 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (nhans_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+from the root of a checkout, on a machine with a CUDA card and nvcc.  It
+builds the CUDA kernel from csrc/, holds it against its plain PyTorch
+version at the serving shapes, times it, then serves seeded utterances
+through the port's entry points at full width with the shipped weights
+(docs/quality/*_q5_swa.npz): the denoiser (against the same Enhancer on
+the plain spectrogram and against the JAX package's golden output in
+tests/data/torch_golden_denoiser.npz), the segmented long-audio path, the
+separator, and the denoiser command line.  Any failed check raises, and
+the script exits non-zero without its result line.  Without a CUDA card,
+or without the rest of the repository, it exits non-zero at once.
+
+The last lines are the card's name and power limit as nvidia-smi gives
+them, one JSON object with the kernel's numbers, and
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+The script writes nothing into the repository apart from build/.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+from contextlib import contextmanager
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the tensor
+# cores, and device memory
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# The least work of the spectrogram per frame, with an FFT: 2.5 N log2 N
+# operations for a real 400-point FFT (half the 5 N log2 N of a complex
+# one), 400 for the window, about 5 per bin for the log-magnitude.  The
+# kernel's direct DFT does 2 * 400 * 402, 32 times as many; the bound
+# counts what the function needs, not what this kernel does.
+SPECTROGRAM_OPS_PER_FRAME = 2.5 * 400 * np.log2(400) + 400 + 5 * 201
+
+# kernel against plain, the bars of tests/test_pallas_ops.py
+LM_ATOL = 5e-3
+REIM_RTOL = 5e-3  # x max|re|
+# served waveforms (peak about 1) on the card against the card on the plain
+# spectrogram, against the JAX package's golden output (CPU) and against
+# the unsegmented call: 1e-3 absolute, snr_est 1e-3 relative.  It leaves
+# room for cuDNN's choice of algorithm per shape; a wrong window, phase or
+# frame offset moves the waveforms by 1e-1.
+WAVE_ATOL = 1e-3
+SNR_RTOL = 1e-3
+
+SR = 16000
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(f"check failed: {msg}")
+
+
+def say(msg):
+    print(msg, flush=True)
+
+
+def cuda_ms(torch, fn, reps=20, warmup=3):
+    """Mean device time of fn() in ms, by CUDA events after a warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def utterance(rng, seconds, f0):
+    """int16-scale float64: a harmonic tone with a moving pitch in noise."""
+    t = np.arange(int(round(seconds * SR))) / SR
+    phase = 2 * np.pi * np.cumsum(f0 + 30 * np.sin(2 * np.pi * 0.5 * t)) / SR
+    voice = sum(np.sin(h * phase) / h for h in range(1, 6))
+    return 7000 * voice + rng.standard_normal(len(t)) * 1500
+
+
+@contextmanager
+def plain_spectrogram(stft_cuda):
+    """Serve with the plain spectrogram on the card, for comparison."""
+    kernel = stft_cuda.log_spectrogram_kernel
+    stft_cuda.log_spectrogram_kernel = stft_cuda.log_spectrogram_plain
+    try:
+        yield
+    finally:
+        stft_cuda.log_spectrogram_kernel = kernel
+
+
+def compare(got, ref, what, keys=("denoised", "mixed_processed", "removed")):
+    errs = {}
+    for key in keys:
+        g, r = np.asarray(got[key]), np.asarray(ref[key])
+        check(g.shape == r.shape, f"{what} {key}: shape {g.shape} != {r.shape}")
+        errs[key] = float(np.abs(g - r).max()) if g.size else 0.0
+        check(errs[key] <= WAVE_ATOL, f"{what} {key}: max |diff| "
+              f"{errs[key]:.3g} > {WAVE_ATOL}")
+    g, r = np.asarray(got["snr_est"]), np.asarray(ref["snr_est"])
+    rel = float(np.max(np.abs(g - r) / np.maximum(np.abs(r), 1e-12)))
+    check(rel <= SNR_RTOL, f"{what} snr_est: rel diff {rel:.3g} > {SNR_RTOL}")
+    say(f"  {what}: max |diff| "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f"; snr_est rel diff {rel:.3g}")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    from nhans_tpu_torch.cli._app import load_enhancer
+    from nhans_tpu_torch.config import Config
+    from nhans_tpu_torch.dsp import spectral as sp
+    from nhans_tpu_torch.ops import _build, stft_cuda
+    from tests.make_torch_golden import (DENOISER_NPZ, GOLDEN, SEPARATOR_NPZ,
+                                         golden_inputs, input_digest)
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+
+    # -- 1. device ---------------------------------------------------------
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    say(f"[1 device] {kind} x{count}; nvidia-smi: {smi}; torch "
+        f"{torch.__version__} cuda {torch.version.cuda}")
+
+    # -- 2. build ----------------------------------------------------------
+    _, record = _build.load("log_spectrogram")
+    say(f"[2 build] {os.path.relpath(record['path'], REPO)} in "
+        f"{record['seconds']:.2f} s")
+    for line in record["ptxas"]:
+        say(f"  {line}")
+
+    # -- 3. kernel against its plain version, at the path's shapes ----------
+    rng = np.random.default_rng(0)
+    max_err = 0.0
+    shapes = [((1, 160000), True), ((8, 160000), True), ((16, 32240), False),
+              ((3, 4000 + 77), True), ((2, 400 + 160 * 20), True),
+              ((2, 399), True)]
+    for shape, with_reim in shapes:
+        x = torch.from_numpy(
+            (rng.standard_normal(shape) * 0.3).astype(np.float32)).to(dev)
+        before = stft_cuda.log_spectrogram_kernel.launches
+        got = stft_cuda.log_spectrogram_kernel(x, with_reim)
+        ref = stft_cuda.log_spectrogram_plain(x, with_reim)
+        torch.cuda.synchronize()
+        F = sp.num_frames(shape[1])
+        check(stft_cuda.log_spectrogram_kernel.launches - before == (F > 0),
+              f"{shape}: launches")
+        if not with_reim:
+            got, ref = (got,), (ref,)
+        check(all(g.shape == (shape[0], F, 201) for g in got),
+              f"{shape}: output shape")
+        if F == 0:
+            say(f"[3 kernel] {shape} F=0: empty outputs, no launch")
+            continue
+        lm_err = (got[0] - ref[0]).abs().max().item()
+        check(lm_err <= LM_ATOL, f"{shape}: log-magnitude err {lm_err}")
+        max_err = max(max_err, lm_err)
+        msg = f"[3 kernel] {shape} F={F}: max |d logmag| {lm_err:.3g}"
+        if with_reim:
+            scale = ref[1].abs().max().item()
+            ri_err = max((g - r).abs().max().item()
+                         for g, r in zip(got[1:], ref[1:]))
+            check(ri_err <= REIM_RTOL * scale, f"{shape}: re/im err {ri_err}")
+            msg += f", max |d re/im| {ri_err:.3g} (max|re| {scale:.3g})"
+        say(msg)
+
+    # -- 4. timing -----------------------------------------------------------
+    window = torch.hann_window(400, periodic=True, device=dev)
+
+    def library(x):
+        spec = torch.stft(x, n_fft=400, hop_length=160, win_length=400,
+                          window=window, center=False, return_complex=True)
+        return torch.log(spec.abs() + 1e-5), spec.real, spec.imag
+
+    timings = {}
+    for B in (1, 4, 8):
+        x = torch.from_numpy((rng.standard_normal((B, 160000)) * 0.3)
+                             .astype(np.float32)).to(dev)
+        F = sp.num_frames(160000)
+        flops = B * F * SPECTROGRAM_OPS_PER_FRAME
+        nbytes = 4 * (B * 160000 + 3 * B * F * 201)  # in once, 3 outs once
+        t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+        timings[B] = dict(
+            ms=cuda_ms(torch, lambda: stft_cuda.log_spectrogram_kernel(x, True)),
+            plain_ms=cuda_ms(torch, lambda: stft_cuda.log_spectrogram_plain(x, True)),
+            library_ms=cuda_ms(torch, lambda: library(x)),
+            bound_ms=1e3 * max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            flops=flops, bytes=nbytes)
+        t = timings[B]
+        say(f"[4 timing] [{B}, 160000] with re/im (10 s, F={F}): kernel "
+            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, torch.stft+log "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP "
+            f"by FFT)"
+            f" on {smi}")
+
+    # -- 5. end to end, denoiser ---------------------------------------------
+    rng = np.random.default_rng(5)
+    seconds = (1.3, 3.1, 10.0)
+    mixed = [utterance(rng, s, 150 + 40 * i) for i, s in enumerate(seconds)]
+    pos = rng.standard_normal(int(0.8 * SR)) * 600
+    neg = rng.standard_normal(3 * SR) * 2000
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    den = load_enhancer(Config.denoiser(), DENOISER_NPZ, device="cuda")
+
+    stft_cuda.log_spectrogram_kernel.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = den.enhance_batch(mixed, [pos] * 3, [neg] * 3)
+    wall_first = time.perf_counter() - t0
+    launches = stft_cuda.log_spectrogram_kernel.launches
+    say(f"[5 denoiser] main path: {launches} kernel launches "
+        "(contexts [8, 32240] and mixed [4, 160000])")
+    check(launches == 2, f"expected 2 kernel launches, saw {launches}")
+    for i, s in enumerate(seconds):
+        n = den.cfg.audio.trim_to_whole_frames(len(mixed[i]))
+        for key in ("denoised", "mixed_processed", "removed"):
+            check(len(out[key][i]) == n, f"{key}[{i}] length")
+            check(np.isfinite(out[key][i]).all(), f"{key}[{i}] finite")
+    check(np.isfinite(out["snr_est"]).all(), "snr_est finite")
+    # the Enhancer turns TF32 off for its own device work only
+    check((torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32) == tf32,
+          "serving changed the process's TF32 settings")
+
+    t0 = time.perf_counter()
+    den.enhance_batch(mixed, [pos] * 3, [neg] * 3)
+    wall_warm = time.perf_counter() - t0
+    audio = sum(seconds)
+    say(f"  batch of {len(seconds)} ({audio:.1f} s of audio): first call "
+        f"{wall_first:.3f} s (RTF {audio / wall_first:.1f}x), warm call "
+        f"{wall_warm:.3f} s (RTF {audio / wall_warm:.1f}x, "
+        f"{wall_warm / len(seconds):.3f} s per utterance) on {smi}")
+    for i in range(len(seconds)):
+        t0 = time.perf_counter()
+        den.enhance(mixed[i], pos, neg)
+        w = time.perf_counter() - t0
+        say(f"  single {seconds[i]} s utterance: {w:.3f} s "
+            f"(RTF {seconds[i] / w:.1f}x) on {smi}")
+
+    with plain_spectrogram(stft_cuda):
+        den._ctx_cache.clear()
+        ref = den.enhance_batch(mixed, [pos] * 3, [neg] * 3)
+    den._ctx_cache.clear()
+    for i in range(len(seconds)):
+        compare({k: v[i] for k, v in out.items()},
+                {k: v[i] for k, v in ref.items()},
+                f"kernel vs plain spectrogram, utterance {i}")
+
+    with np.load(GOLDEN) as z:
+        golden = {k: z[k] for k in z.files}
+    g_in = golden_inputs()
+    check(str(golden["input_sha256"]) == input_digest(*g_in),
+          "golden inputs do not regenerate (numpy stream changed?)")
+    compare(den.enhance(*g_in), golden, "golden (JAX package, CPU)",
+            keys=("denoised", "mixed_processed"))
+
+    long = utterance(rng, 40.0, 170)
+    t0 = time.perf_counter()
+    seg = den.enhance_long(long, pos, neg, segment_seconds=8)
+    w_seg = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    whole = den.enhance(long, pos, neg)
+    w_whole = time.perf_counter() - t0
+    # The 40 s input fills its bucket exactly, so the unsegmented call's
+    # last 17 windows read the zero padding of the log-magnitude, while
+    # the last segment sits on a longer bucket and reads frames of zero
+    # audio, log(1e-5).  The JAX package's two paths differ the same way
+    # there (tests/test_torch_enhance.py), so the check covers the frames
+    # before that tail and the tail's difference is printed.
+    head = 160 * (sp.num_frames(len(long)) - 17)
+    errs = {}
+    for key in ("denoised", "mixed_processed", "removed"):
+        check(len(seg[key]) == len(whole[key]), f"enhance_long {key} length")
+        errs[key] = float(np.abs(seg[key][:head] - whole[key][:head]).max())
+        check(errs[key] <= WAVE_ATOL, f"enhance_long {key}: max |diff| "
+              f"{errs[key]:.3g} > {WAVE_ATOL} before the last 17 frames")
+    tail = float(np.abs(seg["denoised"][head:] - whole["denoised"][head:]).max())
+    say("  enhance_long (8 s segments) vs unsegmented 40 s, before the last "
+        "17 frames: max |diff| " + ", ".join(f"{k} {v:.3g}" for k, v in
+                                            errs.items())
+        + f"; last 17 frames (bucket tail) denoised {tail:.3g}")
+    say(f"  40 s: segmented {w_seg:.3f} s (RTF {40 / w_seg:.1f}x), "
+        f"unsegmented {w_whole:.3f} s (RTF {40 / w_whole:.1f}x) on {smi}")
+    # 39.3 s leaves 70 frames of zero audio in its 40 s bucket, so both
+    # paths read the same frames at the tail: they agree everywhere
+    short = utterance(rng, 39.3, 190)
+    seg = den.enhance_long(short, pos, neg, segment_seconds=8)
+    whole = den.enhance(short, pos, neg)
+    compare(seg, whole, "enhance_long (8 s segments) vs unsegmented 39.3 s, "
+            "whole waveform")
+
+    # -- 6. end to end, separator --------------------------------------------
+    sep = load_enhancer(Config.separator(), SEPARATOR_NPZ, device="cuda")
+    target = utterance(rng, 3.0, 210)
+    interference = utterance(rng, 3.0, 120)
+    mix_sep = target + 0.8 * np.roll(interference, 4000)
+    stft_cuda.log_spectrogram_kernel.launches = 0
+    t0 = time.perf_counter()
+    # the separator's slots: (interference speaker, target speaker)
+    res = sep.enhance(mix_sep, interference, target)
+    w = time.perf_counter() - t0
+    check(stft_cuda.log_spectrogram_kernel.launches == 2, "separator launches")
+    check(len(res["denoised"]) == sep.cfg.audio.trim_to_whole_frames(
+        len(mix_sep)), "separator length")
+    check(all(np.isfinite(res[k]).all() for k in ("denoised", "removed")),
+          "separator output finite")
+    say(f"[6 separator] 3.0 s: {w:.3f} s, snr_est {float(res['snr_est']):.4f}, "
+        f"2 kernel launches, on {smi}")
+
+    # -- 7. command line -------------------------------------------------------
+    from scipy.io import wavfile
+    with tempfile.TemporaryDirectory() as tmp:
+        wavfile.write(os.path.join(tmp, "in.wav"), SR,
+                      np.rint(mixed[1]).astype(np.int16))
+        wavfile.write(os.path.join(tmp, "neg.wav"), SR,
+                      np.rint(neg).astype(np.int16))
+        out_wav = os.path.join(tmp, "out.wav")
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "nhans_tpu_torch.cli.denoiser",
+             "--checkpoint", DENOISER_NPZ, "--input",
+             os.path.join(tmp, "in.wav"), "--neg",
+             os.path.join(tmp, "neg.wav"), "--pos", "", "--output", out_wav],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        w = time.perf_counter() - t0
+        check(r.returncode == 0, f"denoiser CLI failed:\n{r.stderr}")
+        snr_cli = float(next(line for line in r.stdout.splitlines()
+                             if line and "->" not in line
+                             and not line.startswith("NOTE")))
+        want = den.enhance(mixed[1], np.zeros(SR), neg)
+        check(abs(snr_cli - float(want["snr_est"]))
+              <= SNR_RTOL * abs(float(want["snr_est"])), "CLI snr_est")
+        for tag in ("", "_mixed_processed", "_removed", "_compensated"):
+            rate, x = wavfile.read(os.path.join(tmp, f"out{tag}.wav"))
+            check(rate == SR and x.dtype == np.float32, f"out{tag}.wav format")
+            check(len(x) == len(want["denoised"]) and np.isfinite(x).all(),
+                  f"out{tag}.wav length / finite")
+        wav = wavfile.read(out_wav)[1]
+        check(np.abs(wav - want["denoised"]).max() <= WAVE_ATOL, "CLI output")
+    say(f"[7 cli] python -m nhans_tpu_torch.cli.denoiser: 4 files, snr_est "
+        f"{snr_cli:.4f}, {w:.1f} s with start-up")
+
+    # -- result ------------------------------------------------------------------
+    t = timings[4]
+    kernels = [{
+        "name": "log_spectrogram",
+        "route": "cuda",
+        "source": "nhans_tpu_torch/csrc/log_spectrogram.cu",
+        "replaces": "nhans_tpu/ops/stft_pallas.py:36",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+    }]
+    say(f"total {time.perf_counter() - t_start:.1f} s")
+    say(smi)
+    say(json.dumps({"kernels": kernels}))
+    say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                           "count": count}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,140 @@
+"""Shared machinery of the serving command lines (the port of
+``nhans_tpu/cli/_app.py``).
+
+    python -m nhans_tpu_torch.cli.denoiser --checkpoint docs/quality/denoiser_q5_swa.npz \\
+        --input mixed.wav --neg noise.wav --output out.wav
+    python -m nhans_tpu_torch.cli.separator --checkpoint docs/quality/separator_q5_swa.npz \\
+        --input mixed.wav --pos target.wav --neg interference.wav --output out.wav
+
+Next to the output it writes ``<out>_mixed_processed.wav`` and
+``<out>_removed.wav``, and for the denoiser ``<out>_compensated.wav`` and
+the SNR estimate on standard output.  ``--input`` may be a directory:
+its wavs are enhanced in batches of 8 into the ``--output`` directory.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import sys
+
+import numpy as np
+
+from nhans_tpu_torch.config import Config, add_inference_flags
+from nhans_tpu_torch.utils import wavio
+from nhans_tpu_torch.utils.device import resolve_device
+
+
+def _sidecar(path: str, tag: str) -> str:
+    base, ext = os.path.splitext(path)
+    return f"{base}_{tag}{ext or '.wav'}"
+
+
+def _check_freq_pad() -> None:
+    """NHANS_FREQ_PAD selects the JAX package's lane-padded tower, which
+    the port does not have yet: refuse it with a message, not a traceback."""
+    val = os.environ.get("NHANS_FREQ_PAD", "").strip()
+    if val not in ("", "0"):
+        sys.exit(f"NHANS_FREQ_PAD={val!r}: the lane-padded tower geometry "
+                 "(freq_pad_to) is not ported to nhans_tpu_torch yet (see "
+                 "ROADMAP.md, Queue 1); unset NHANS_FREQ_PAD or set it to 0")
+
+
+def load_enhancer(cfg: Config, checkpoint: str, window_chunk: int = 2048,
+                  buckets_seconds=None, device="cuda"):
+    """An ``Enhancer`` for ``cfg`` with the weights of a flat ``.npz``."""
+    from nhans_tpu_torch.compat.weights import load_npz
+    from nhans_tpu_torch.infer.enhance import DEFAULT_BUCKETS_SECONDS, Enhancer
+
+    return Enhancer(cfg, load_npz(checkpoint), window_chunk=window_chunk,
+                    buckets_seconds=buckets_seconds or DEFAULT_BUCKETS_SECONDS,
+                    device=device)
+
+
+def _read(path: str, fs: int) -> np.ndarray:
+    return wavio.read_for_processing(path, fs)
+
+
+def _silent(fs: int) -> np.ndarray:
+    """Implicit positive context for plain denoising: one second of
+    silence."""
+    return np.zeros(fs, np.float64)
+
+
+def run(task: str, argv=None) -> None:
+    parser = argparse.ArgumentParser(
+        prog=f"python -m nhans_tpu_torch.cli.{task}",
+        description=f"N-HANS {task} (PyTorch / CUDA)")
+    add_inference_flags(parser, task=task)
+    args = parser.parse_args(argv)
+    _check_freq_pad()
+    if args.demo:
+        sys.exit("--demo needs the mixing module (dsp/mixing.py), which is "
+                 "not ported to nhans_tpu_torch yet (see ROADMAP.md, "
+                 "Queue 1); mix the input beforehand instead")
+    if not args.checkpoint:
+        sys.exit(f"--checkpoint is required: a flat .npz of weights, e.g. "
+                 f"docs/quality/{task}_q5_swa.npz")
+    base = Config.denoiser() if task == "denoiser" else Config.separator()
+    cfg = base.replace(audio=dataclasses.replace(
+        base.audio, recon_residual_cap=args.recon_residual_cap))
+    fs = args.Fs
+
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as err:
+        sys.exit(f"error: {err}")
+    enhancer = load_enhancer(cfg, args.checkpoint, device=device)
+
+    if os.path.isdir(args.input):
+        inputs = wavio.list_wavs(args.input)
+        if not inputs:
+            sys.exit(f"no wavs under {args.input}")
+        os.makedirs(args.output, exist_ok=True)
+        outputs = [os.path.join(args.output, os.path.basename(p))
+                   for p in inputs]
+    else:
+        inputs, outputs = [args.input], [args.output]
+
+    pos = (_read(args.pos, fs) if args.pos and os.path.exists(args.pos)
+           else _silent(fs))
+    neg = _read(args.neg, fs)
+
+    # Context slot order differs per task (see NHANSNet): the denoiser
+    # takes (pos noise, neg noise), the separator takes (interference
+    # speaker = --neg, target speaker = --pos).
+    if task == "denoiser":
+        ctx_a, ctx_b = pos, neg
+    else:
+        ctx_a, ctx_b = neg, pos
+
+    # inputs beyond the largest bucket go through the exact segmented path
+    long_threshold = enhancer.buckets[-1]
+
+    def run_batch(waves):
+        if len(waves) == 1 and len(waves[0]) > long_threshold:
+            r = enhancer.enhance_long(waves[0], ctx_a, ctx_b)
+            return {k: ([v] if not isinstance(v, float) else np.array([v]))
+                    for k, v in r.items()}
+        return enhancer.enhance_batch(
+            waves, [ctx_a] * len(waves), [ctx_b] * len(waves))
+
+    batch = 8 if len(inputs) > 1 else 1
+    for i in range(0, len(inputs), batch):
+        chunk_in = inputs[i:i + batch]
+        res = run_batch([_read(p, fs) for p in chunk_in])
+        for j, out_path in enumerate(outputs[i:i + batch]):
+            den = res["denoised"][j]
+            mix = res["mixed_processed"][j]
+            rem = res["removed"][j]
+            snr_est = float(res["snr_est"][j])
+            wavio.write_wav(out_path, den, fs)
+            wavio.write_wav(_sidecar(out_path, "mixed_processed"), mix, fs)
+            wavio.write_wav(_sidecar(out_path, "removed"), rem, fs)
+            if task == "denoiser":
+                print(snr_est)
+                comp = enhancer.compensate(den, rem, snr_est,
+                                           args.compensate, args.ac)
+                wavio.write_wav(_sidecar(out_path, "compensated"), comp, fs)
+            print(f"{chunk_in[j]} -> {out_path}")

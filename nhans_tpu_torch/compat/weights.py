@@ -1,0 +1,41 @@
+"""Load the JAX package's flat ``.npz`` weights into the port's modules.
+
+The ``.npz`` holds flax variables flattened with ``/``: float16
+``params/...`` and float32 ``batch_stats/...`` (the format of
+``tools/ckpt_npz.py``).  The port's modules carry the flax names, so a key
+maps to a ``state_dict`` key by dropping the collection and reading ``/``
+as ``.``.  Conv kernels go from HWIO to OIHW; dense ``[in, out]`` weights
+are kept as they are; population statistics become buffers.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+_COLLECTIONS = ("params", "batch_stats")
+
+
+def from_flax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """Flat flax variables -> a float32 ``state_dict`` for ``NHANSNet``."""
+    state = {}
+    for key, value in flat.items():
+        coll, _, path = key.partition("/")
+        if coll not in _COLLECTIONS or not path:
+            raise KeyError(f"unexpected checkpoint key {key!r}")
+        arr = np.asarray(value, np.float32)
+        if arr.ndim == 4:  # conv kernel HWIO -> OIHW
+            arr = arr.transpose(3, 2, 0, 1)
+        name = path.replace("/", ".")
+        if name in state:
+            raise KeyError(f"checkpoint key {key!r} maps onto {name!r} twice")
+        state[name] = torch.from_numpy(np.ascontiguousarray(arr))
+    return state
+
+
+def load_npz(path: str) -> Dict[str, torch.Tensor]:
+    """``from_flax`` of a flat ``.npz`` checkpoint."""
+    with np.load(path) as z:
+        return from_flax({k: z[k] for k in z.files})

@@ -1,0 +1,209 @@
+"""The N-HANS conditional ResNet as torch.nn modules, for inference: the
+port of ``nhans_tpu/nn/model.py``.
+
+* a shared context tower: 4 strided residual conv blocks
+  (64 -> 128 -> 256 -> 512) and a global average pool -> 512-d embedding,
+  applied to both context spectrograms;
+* the main tower: 8 residual conv blocks whose every conv output is
+  conditioned by projections of the two embeddings plus time- and
+  frequency-position MLP embeddings;
+* the head: a time-collapsing VALID conv and a dense layer -> a 201-d
+  residual added to the central mixed frame.
+
+The public functions take ``[B, W, F]`` (time, frequency) as the JAX
+package does; inside, tensors are NCHW with time as H and frequency as W.
+Module and parameter names are the flax names, so ``state_dict`` keys are
+the checkpoint's keys with ``/`` read as ``.``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from nhans_tpu_torch.config import ModelConfig
+from nhans_tpu_torch.nn.blocks import BatchNorm, Conv, Dense, same_pads
+
+
+class PositionalMLP(nn.Module):
+    """Embeds positions 0..n-1 through a 1 -> 50 -> 50 -> out_dim MLP with
+    BN + ReLU between the layers.  -> [n, out_dim]"""
+
+    def __init__(self, out_dim: int, hidden: int = 50, bn_eps: float = 1e-3):
+        super().__init__()
+        self.dense1 = Dense(1, hidden, use_bias=False)
+        self.bn1 = BatchNorm(hidden, bn_eps)
+        self.dense2 = Dense(hidden, hidden, use_bias=False)
+        self.bn2 = BatchNorm(hidden, bn_eps)
+        self.dense3 = Dense(hidden, out_dim, use_bias=False)
+
+    def forward(self, n: int, device) -> torch.Tensor:
+        x = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+        x = F.relu(self.bn1(self.dense1(x)))
+        x = F.relu(self.bn2(self.dense2(x)))
+        return self.dense3(x)
+
+
+class ContextBlock(nn.Module):
+    """Conv-BN-ReLU-conv residual block with a strided 1x1 shortcut when
+    the channel count changes."""
+
+    def __init__(self, in_features: int, features: int, kernel: Sequence[int],
+                 strides: Sequence[int], bn_eps: float = 1e-3):
+        super().__init__()
+        _check_residual(in_features, features, strides)
+        self.conv1 = Conv(in_features, features, kernel, strides,
+                          use_bias=False)
+        self.bn1 = BatchNorm(features, bn_eps)
+        self.conv2 = Conv(features, features, kernel, (1, 1))
+        self.transform = (Conv(in_features, features, (1, 1), strides)
+                          if in_features != features else None)
+        self.bn_out = BatchNorm(features, bn_eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        path1 = F.relu(self.bn1(self.conv1(x)))
+        path1 = self.conv2(path1)
+        path2 = x if self.transform is None else self.transform(x)
+        return F.relu(self.bn_out(path1 + path2))
+
+
+class ContextEncoder(nn.Module):
+    """The shared context tower: [B, context_frames, F] -> [B, 512]."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        cin = 1
+        for i, (kernel, strides, features) in enumerate(cfg.context_blocks):
+            self.add_module(f"block{i + 1}", ContextBlock(
+                cin, features, kernel, strides, cfg.bn_eps))
+            cin = features
+
+    def forward(self, ctx: torch.Tensor) -> torch.Tensor:
+        x = ctx[:, None]
+        for block in self.children():
+            x = block(x)
+        return torch.mean(x, dim=(2, 3))  # global average pool
+
+
+class Inject(nn.Module):
+    """Adds projections of both context embeddings and the learned time-
+    and frequency-position embeddings to an NCHW activation.  Each
+    position MLP is evaluated at the size of the tensor it is added to."""
+
+    def __init__(self, features: int, embedding_dim: int = 512,
+                 hidden: int = 50, bn_eps: float = 1e-3):
+        super().__init__()
+        self.proj_a = Dense(embedding_dim, features)
+        self.proj_b = Dense(embedding_dim, features)
+        self.temb = PositionalMLP(features, hidden, bn_eps)
+        self.femb = PositionalMLP(features, hidden, bn_eps)
+
+    def forward(self, x: torch.Tensor, emb_a: torch.Tensor,
+                emb_b: torch.Tensor) -> torch.Tensor:
+        a = self.proj_a(emb_a)[:, :, None, None]
+        b = self.proj_b(emb_b)[:, :, None, None]
+        t = self.temb(x.shape[2], x.device).t()[None, :, :, None]
+        f = self.femb(x.shape[3], x.device).t()[None, :, None, :]
+        return x + a + b + t + f
+
+
+class CondResBlock(nn.Module):
+    """Residual conv block with conditioning injected after each of its
+    two convolutions (native geometry)."""
+
+    def __init__(self, in_features: int, features: int, kernel: int,
+                 stride: int, embedding_dim: int = 512, hidden: int = 50,
+                 bn_eps: float = 1e-3):
+        super().__init__()
+        k, s = kernel, stride
+        _check_residual(in_features, features, (s, s))
+        self.conv1 = Conv(in_features, features, (k, k), (s, s),
+                          use_bias=False)
+        self.inject1 = Inject(features, embedding_dim, hidden, bn_eps)
+        self.bn1 = BatchNorm(features, bn_eps)
+        self.conv2 = Conv(features, features, (k, k), (1, 1))
+        self.inject2 = Inject(features, embedding_dim, hidden, bn_eps)
+        self.transform = (Conv(in_features, features, (1, 1), (s, s))
+                          if in_features != features else None)
+        self.bn_out = BatchNorm(features, bn_eps)
+
+    def forward(self, x: torch.Tensor, emb_a: torch.Tensor,
+                emb_b: torch.Tensor) -> torch.Tensor:
+        path1 = self.inject1(self.conv1(x), emb_a, emb_b)
+        path1 = F.relu(self.bn1(path1))
+        path1 = self.inject2(self.conv2(path1), emb_a, emb_b)
+        path2 = x if self.transform is None else self.transform(x)
+        return F.relu(self.bn_out(path1 + path2))
+
+
+def _check_residual(in_features: int, features: int,
+                    strides: Sequence[int]) -> None:
+    """An identity shortcut needs an unstrided block: otherwise the two
+    paths of the residual add would disagree in size."""
+    if in_features == features and tuple(strides) != (1, 1):
+        raise ValueError(f"block keeps {features} channels but has strides "
+                         f"{tuple(strides)}: its identity shortcut would not "
+                         "match the strided path")
+
+
+class NHANSNet(nn.Module):
+    """The full model.  ``forward`` returns the predicted residual for the
+    central frame of each window: denoised = mixed[:, W // 2] + residual.
+
+    ``ctx_a`` is the first context (positive noise for the denoiser,
+    interference speaker for the separator), ``ctx_b`` the second
+    (negative noise / target speaker)."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        if cfg.freq_pad_to:
+            raise NotImplementedError(
+                "freq_pad_to != 0 (the lane-padded tower geometry) is not "
+                "ported yet; see ROADMAP.md, Queue 1")
+        self.cfg = cfg
+        self.embedding = ContextEncoder(cfg)
+        emb_dim = cfg.context_blocks[-1][2]  # width of the context tower
+        cin, t, f = 1, cfg.window_frames, cfg.num_features
+        for i, (k, s, c) in enumerate(cfg.main_blocks):
+            self.add_module(f"resblock{i + 1}", CondResBlock(
+                cin, c, k, s, emb_dim, cfg.pos_embed_hidden, cfg.bn_eps))
+            cin, t, f = c, same_pads(t, k, s)[2], same_pads(f, k, s)[2]
+        self.num_blocks = len(cfg.main_blocks)
+        self.last_conv = Conv(cin, cfg.embedding_dim, (t, 1),
+                              padding="VALID", use_bias=False)
+        self.last_bn = BatchNorm(cfg.embedding_dim, cfg.bn_eps)
+        self.last_dense = Dense(f * cfg.embedding_dim, cfg.num_features)
+
+    def forward(self, mixed: Optional[torch.Tensor],
+                ctx_a: Optional[torch.Tensor] = None,
+                ctx_b: Optional[torch.Tensor] = None,
+                emb_a: Optional[torch.Tensor] = None,
+                emb_b: Optional[torch.Tensor] = None):
+        """``mixed`` [B, W, F] windows; either the context spectrograms
+        ``ctx_a``/``ctx_b`` [B, C, F] or their precomputed 512-d embeddings
+        ``emb_a``/``emb_b``.  With ``mixed=None`` it only encodes the
+        contexts and returns (emb_a, emb_b)."""
+        if emb_a is None:
+            emb_a = self.embedding(ctx_a)
+        if emb_b is None:
+            emb_b = self.embedding(ctx_b)
+        if mixed is None:
+            return emb_a, emb_b
+        out = mixed[:, None]
+        for i in range(self.num_blocks):
+            out = getattr(self, f"resblock{i + 1}")(out, emb_a, emb_b)
+        out = F.relu(self.last_bn(self.last_conv(out)))   # [B, C, 1, F']
+        # flatten as NHWC [B, 1, F', C] -> [B, F' * C], frequency-major,
+        # which is the row order of last_dense/w
+        out = out.permute(0, 2, 3, 1).reshape(out.shape[0], -1)
+        return self.last_dense(out)
+
+    def enhance_frames(self, mixed: torch.Tensor, ctx_a: torch.Tensor,
+                       ctx_b: torch.Tensor) -> torch.Tensor:
+        """Denoised central frames for a batch of windows [B, W, F]."""
+        res = self(mixed, ctx_a, ctx_b)
+        return mixed[:, self.cfg.window_frames // 2, :] + res
+

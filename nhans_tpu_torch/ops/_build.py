@@ -1,0 +1,70 @@
+"""Build the port's CUDA sources with ``nvcc`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled for
+``sm_90a`` into ``build/nhans_tpu_torch/lib<name>-<hash>.so`` under the
+repository root at first use.  The hash is that of the source and the
+flags, so an edited source is rebuilt and an unchanged one is loaded as
+it is.  No PyTorch header is compiled: a build takes seconds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "nhans_tpu_torch")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# name -> (ctypes.CDLL, build record); one load per process
+_LOADED: dict = {}
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
+                       "of nhans_tpu_torch are built on the machine with "
+                       "the card")
+
+
+def load(name: str):
+    """(ctypes.CDLL, record) for ``csrc/<name>.cu``, building it if its
+    library is missing.  ``record`` holds the library path, the build
+    seconds (0.0 when an earlier build was reused) and nvcc's ptxas lines
+    (registers, shared memory, spills)."""
+    if name in _LOADED:
+        return _LOADED[name]
+    src = os.path.join(CSRC, f"{name}.cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    lib_path = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+    record = {"path": lib_path, "seconds": 0.0, "ptxas": []}
+    if not os.path.exists(lib_path):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+            os.replace(tmp, lib_path)  # atomic: a reader never sees half
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+        record["seconds"] = time.perf_counter() - t0
+        record["ptxas"] = [ln for ln in (proc.stdout + proc.stderr).splitlines()
+                           if "ptxas" in ln]
+    _LOADED[name] = (ctypes.CDLL(lib_path), record)
+    return _LOADED[name]
