@@ -65,6 +65,6 @@ def load(name: str):
                 os.remove(tmp)
         record["seconds"] = time.perf_counter() - t0
         record["ptxas"] = [ln for ln in (proc.stdout + proc.stderr).splitlines()
-                           if "ptxas" in ln]
+                           if "ptxas" in ln or "spill" in ln]
     _LOADED[name] = (ctypes.CDLL(lib_path), record)
     return _LOADED[name]

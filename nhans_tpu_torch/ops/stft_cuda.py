@@ -2,11 +2,14 @@
 PyTorch version, and the wrapper that chooses between them by device.
 
 The kernel (``csrc/log_spectrogram.cu``) replaces the TPU kernel
-``nhans_tpu/ops/stft_pallas.py::pallas_log_spectrogram``.  The function's
-least time is set by bytes (an FFT needs about 3 operations per byte
-moved); the kernel's direct 400-point DFT does 32 times that work, so the
-float32 operation rate limits it.  Its source says how the design keeps
-the product in true float32 and inside a block's shared memory.
+``nhans_tpu/ops/stft_pallas.py::pallas_log_spectrogram``.  It packs each
+windowed 400-sample frame into 200 complex values, takes a 200-point
+float32 FFT in shared memory (Stockham stages of radix 5, 5 and 8) and
+splits the result into the 201 real bins: about 3 operations per byte
+moved, so bytes bound it.  Every twiddle comes from the cos table of
+``_tables``; the two real bins, 0 and 200, are summed in float64.  One
+block computes 4 frames of one row; its source says what the design does
+and why.
 
 ``log_spectrogram_kernel(x)`` sends a CPU tensor to the plain version and
 a CUDA tensor to the kernel; it never falls back from one to the other.
@@ -28,7 +31,8 @@ FRAME_LENGTH = 400
 FRAME_STEP = 160
 BINS = FRAME_LENGTH // 2 + 1
 LOG_EPS = 1e-5
-_MAX_ROWS = 65535  # gridDim.z
+TILE_FRAMES = 4  # frames per block; the grid is B * ceil(F / 4) blocks
+_MAX_BLOCKS = 2 ** 31 - 1  # gridDim.x
 
 
 def log_spectrogram_plain(x: torch.Tensor, with_reim: bool = False):
@@ -41,12 +45,18 @@ def log_spectrogram_plain(x: torch.Tensor, with_reim: bool = False):
 
 @functools.lru_cache(maxsize=None)
 def _tables(device: torch.device) -> torch.Tensor:
-    """cos(2*pi*m/400) for m in [0, 400), then the periodic Hann window:
-    the 3.2 KB from which the kernel rebuilds its DFT basis."""
+    """cos(2*pi*m/400) for m in [0, 400) and the periodic Hann window,
+    in float32, then the window in float64 (its 3.2 KB as 800 float32
+    words): the kernel takes every twiddle from the cos table
+    (-sin(2*pi*m/400) = cos(2*pi*(m+100)/400)), windows the FFT's input
+    with the float32 window and sums the real bins 0 and 200 with the
+    float64 one."""
     m = np.arange(FRAME_LENGTH)
     ang = 2.0 * np.pi * m / FRAME_LENGTH
-    tab = np.concatenate([np.cos(ang), 0.5 - 0.5 * np.cos(ang)])
-    return torch.as_tensor(tab.astype(np.float32), device=device)
+    win = 0.5 - 0.5 * np.cos(ang)
+    tab = np.concatenate([np.cos(ang).astype(np.float32),
+                          win.astype(np.float32), win.view(np.float32)])
+    return torch.as_tensor(tab, device=device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -71,9 +81,9 @@ def log_spectrogram_kernel(x: torch.Tensor, with_reim: bool = False):
     if x.device.type != "cuda":
         raise ValueError(f"no spectrogram kernel for device {x.device}")
     B, L = x.shape
-    if B > _MAX_ROWS or L >= 2 ** 31:
-        raise ValueError(f"shape {tuple(x.shape)} is beyond the kernel's grid")
     F = sp.num_frames(L, FRAME_LENGTH, FRAME_STEP)
+    if L >= 2 ** 31 or B * -(-F // TILE_FRAMES) > _MAX_BLOCKS:
+        raise ValueError(f"shape {tuple(x.shape)} is beyond the kernel's grid")
     outs = [torch.empty((B, F, BINS), dtype=torch.float32, device=x.device)
             for _ in range(3 if with_reim else 1)]
     if B and F:

@@ -38,8 +38,8 @@ def test_every_module_imports_with_jax_blocked():
     # config, 9 subpackages, dsp/spectral, ops/{_build,stft_cuda},
     # nn/{blocks,model}, compat/weights, infer/enhance,
     # utils/{device,wavio}, cli/{_app,denoiser,separator},
-    # tools/profile_serving
-    assert int(r.stdout.strip()) == 23
+    # tools/{devtime,profile_serving,spectrogram_anatomy}
+    assert int(r.stdout.strip()) == 25
 
 
 @pytest.mark.parametrize("path", PORT_SOURCES)
