@@ -5,18 +5,27 @@
 
 from the root of a checkout, on a machine with a CUDA card and nvcc.  It
 builds the CUDA kernel from csrc/, holds it against its plain PyTorch
-version at the serving shapes, times it by device time, then serves
-seeded utterances through the port's entry points at full width with the
-shipped weights
-(docs/quality/*_q5_swa.npz): the denoiser (against the same Enhancer on
-the plain spectrogram and against the JAX package's golden output in
-tests/data/torch_golden_denoiser.npz), the segmented long-audio path, the
-separator, and the denoiser command line.  Any failed check raises, and
-the script exits non-zero without its result line.  Without a CUDA card,
-or without the rest of the repository, it exits non-zero at once.
+version at the serving and training shapes, times it by device time, then
+drives the port's two main paths at full width:
+
+* serving seeded utterances with the shipped weights
+  (docs/quality/*_q5_swa.npz): the denoiser (against the same Enhancer on
+  the plain spectrogram and against the JAX package's golden output in
+  tests/data/torch_golden_denoiser.npz), the segmented long-audio path,
+  the separator, and the denoiser command line;
+* training: one sgd step against the JAX package's training golden
+  (tests/data/torch_golden_train.npz), then ``nhans_tpu_torch.cli.train``
+  on a seeded synthetic corpus in a temporary directory: the denoiser on
+  the corpus banked on the card and streamed from the host, the separator
+  banked, a checkpoint and an auto-resume that replays the uninterrupted
+  run; step time by CUDA events, FLOPs per step, peak memory.
+
+Any failed check raises, and the script exits non-zero without its result
+line.  Without a CUDA card, or without the rest of the repository, it
+exits non-zero at once.
 
 The last lines are the card's name and power limit as nvidia-smi gives
-them, one JSON object with the kernel's numbers, and
+them, one JSON object with the kernel's numbers on each path, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The script writes nothing into the repository apart from build/.
 """
@@ -24,6 +33,7 @@ The script writes nothing into the repository apart from build/.
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -58,6 +68,18 @@ REIM_EXACT_RTOL = 1e-5  # x max|re|
 # frame offset moves the waveforms by 1e-1.
 WAVE_ATOL = 1e-3
 SNR_RTOL = 1e-3
+# one full-width sgd step on the card against the JAX package's step on a
+# CPU: the loss within 1e-4 relative, the gradient norm within 1e-3
+# relative (the JAX one is itself 7e-5 from float64, its first context
+# convolution's weight gradient rounded coarsely), each recorded update
+# within 1e-3 of its largest |delta|, BatchNorm statistics within 1e-4 +
+# 1e-3 relative
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GNORM_RTOL = 1e-3
+TRAIN_DELTA_RTOL = 1e-3
+# the loss of the first step after an auto-resume against the
+# uninterrupted run's (cuDNN's backward sums in another order each run)
+RESUME_RTOL = 1e-4
 
 SR = 16000
 
@@ -77,6 +99,32 @@ def utterance(rng, seconds, f0):
     phase = 2 * np.pi * np.cumsum(f0 + 30 * np.sin(2 * np.pi * 0.5 * t)) / SR
     voice = sum(np.sin(h * phase) / h for h in range(1, 6))
     return 7000 * voice + rng.standard_normal(len(t)) * 1500
+
+
+def write_corpus(root, rng):
+    """A seeded int16 corpus under root with train/valid/test manifests:
+    8 speech utterances of 4 to 10.2 s by 4 speakers and 6 noises of 3 to
+    12 s.  Returns (speech_dir, noise_dir)."""
+    from scipy.io import wavfile
+
+    from nhans_tpu_torch.data.manifest import create_seeds
+
+    dirs = []
+    for kind, seconds in (("speech", (10.225, 9.1, 7.3, 10.0, 4.2, 8.8,
+                                      10.225, 6.0)),
+                          ("noise", (12.0, 3.0, 10.225, 5.5, 9.0, 7.7))):
+        base = os.path.join(root, kind)
+        for split in ("train", "valid", "test"):
+            os.makedirs(os.path.join(base, split))
+        for i, sec in enumerate(seconds):
+            x = (utterance(rng, sec, 120 + 25 * i) if kind == "speech"
+                 else rng.standard_normal(int(sec * SR)) * (800 + 300 * i))
+            wavfile.write(os.path.join(base, "train", f"spk{i % 4}_{i}.wav"),
+                          SR, np.clip(np.rint(x), -32768, 32767)
+                          .astype(np.int16))
+        create_seeds(base)
+        dirs.append(base + "/")
+    return dirs
 
 
 @contextmanager
@@ -118,10 +166,12 @@ def main() -> int:
     from nhans_tpu_torch.config import Config
     from nhans_tpu_torch.dsp import spectral as sp
     from nhans_tpu_torch.ops import _build, stft_cuda
-    from nhans_tpu_torch.tools.devtime import (device_ms, host_paced_ms,
-                                               sleep_cycles_per_ms)
-    from tests.make_torch_golden import (DENOISER_NPZ, GOLDEN, SEPARATOR_NPZ,
-                                         golden_inputs, input_digest)
+    from nhans_tpu_torch.tools.devtime import device_ms, sleep_cycles_per_ms
+    from tests.make_torch_golden import (DENOISER_NPZ, GOLDEN, GOLDEN_TRAIN,
+                                         SEPARATOR_NPZ, TRAIN_LAYERS,
+                                         TRAIN_STATS, golden_inputs,
+                                         golden_train_inputs, input_digest,
+                                         port_train_golden)
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -147,7 +197,7 @@ def main() -> int:
         check(spills is None or spills.groups() == ("0", "0"),
               f"ptxas reports spills: {line}")
 
-    # -- 3. kernel against its plain version, at the path's shapes ----------
+    # -- 3. kernel against its plain version, at the paths' shapes -------
     # Against the plain version taken in float64 (the exact answer): the
     # log-magnitude within LM_ATOL, re/im within REIM_EXACT_RTOL x max|re|.
     # Against the float32 plain version: re/im within REIM_RTOL x max|re|,
@@ -155,11 +205,15 @@ def main() -> int:
     # nearer float64 than the kernel.  At [64, 160000] (12.8M bins) some
     # |X[0]| or |X[200]| of noise lies within a few 1e-5 of zero, where the
     # float32 plain version misses float64 by up to 4e-2 in log-magnitude
-    # and the kernel, which sums those bins in float64, does not.
+    # and the kernel, which sums those bins in float64, does not.  Serving:
+    # contexts [8, 32240] and mixed [4, 160000]; training: [16, 163600]
+    # log-only on the banked path and [16, 64000], the first length bucket,
+    # on the streaming path.
     rng = np.random.default_rng(0)
-    max_err = 0.0
+    kernel_errs = {}
     shapes = [((1, 160000), True), ((4, 160000), True), ((8, 160000), True),
               ((8, 32240), False), ((16, 32240), False),
+              ((16, 163600), False), ((16, 64000), False),
               ((3, 4000 + 77), True), ((2, 400 + 160 * 20), True),
               ((1, 400), True), ((2, 399), True), ((64, 160000), True)]
     for shape, with_reim in shapes:
@@ -185,7 +239,7 @@ def main() -> int:
         lm_err = k_err.max().item()
         check(lm_err <= LM_ATOL, f"{shape}: log-magnitude err {lm_err} "
               "against float64")
-        max_err = max(max_err, lm_err)
+        kernel_errs[shape] = lm_err
         diff = (got[0] - ref[0]).abs()
         off = diff > LM_ATOL
         check(bool((p_err[off] > k_err[off]).all()),
@@ -223,10 +277,7 @@ def main() -> int:
     # -- 4. timing ---------------------------------------------------------
     # Device time (the host runs ahead behind a sleep kernel), in turns:
     # kernel, torch.stft + log, plain, then the reverse order; warm L2, and
-    # cold L2 for the kernel and torch.stft + log.  The host-paced time of
-    # the earlier method is printed beside it for this slice only, so that
-    # PERF.md can set the first device times beside it; the next slice
-    # removes it with devtime.host_paced_ms.
+    # cold L2 for the kernel and torch.stft + log.
     window = torch.hann_window(400, periodic=True, device=dev)
 
     def library(x, with_reim):
@@ -239,7 +290,8 @@ def main() -> int:
     say(f"[4 timing] sleep kernel: {cycles_per_ms:.0f} cycles per ms")
     timings = {}
     for B, L, with_reim in ((1, 160000, True), (4, 160000, True),
-                            (8, 160000, True), (8, 32240, False)):
+                            (8, 160000, True), (8, 32240, False),
+                            (16, 163600, False), (16, 64000, False)):
         x = torch.from_numpy((rng.standard_normal((B, L)) * 0.3)
                              .astype(np.float32)).to(dev)
         F = sp.num_frames(L)
@@ -259,8 +311,6 @@ def main() -> int:
             cold_ms=device_ms(fns["ms"], cycles_per_ms, cold=True)[0],
             cold_library_ms=device_ms(fns["library_ms"], cycles_per_ms,
                                       cold=True)[0],
-            host_ms=host_paced_ms(fns["ms"]),
-            host_library_ms=host_paced_ms(fns["library_ms"]),
             bound_ms=1e3 * max(t_ops, t_bytes),
             bound_by="operations" if t_ops >= t_bytes else "bytes")
         timings[(B, L, with_reim)] = t
@@ -276,9 +326,7 @@ def main() -> int:
             f"({passes['ms']}), torch.stft+log {t['library_ms']:.4f} ms "
             f"({passes['library_ms']}), plain {t['plain_ms']:.4f} ms"
             f"{plain_note}; cold L2: kernel {t['cold_ms']:.4f} ms, torch.stft+log "
-            f"{t['cold_library_ms']:.4f} ms; host-paced (earlier method): "
-            f"kernel {t['host_ms']:.4f} ms, torch.stft+log "
-            f"{t['host_library_ms']:.4f} ms; bound {t['bound_ms']:.5f} ms "
+            f"{t['cold_library_ms']:.4f} ms; bound {t['bound_ms']:.5f} ms "
             f"({t['bound_by']}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP "
             f"by FFT), kernel at {100 * t['bound_ms'] / t['ms']:.1f} % of it"
             f" on {smi}")
@@ -298,10 +346,11 @@ def main() -> int:
     t0 = time.perf_counter()
     out = den.enhance_batch(mixed, [pos] * 3, [neg] * 3)
     wall_first = time.perf_counter() - t0
-    launches = stft_cuda.log_spectrogram_kernel.launches
-    say(f"[5 denoiser] main path: {launches} kernel launches "
+    serving_launches = stft_cuda.log_spectrogram_kernel.launches
+    say(f"[5 denoiser] main path: {serving_launches} kernel launches "
         "(contexts [8, 32240] and mixed [4, 160000])")
-    check(launches == 2, f"expected 2 kernel launches, saw {launches}")
+    check(serving_launches == 2,
+          f"expected 2 kernel launches, saw {serving_launches}")
     for i, s in enumerate(seconds):
         n = den.cfg.audio.trim_to_whole_frames(len(mixed[i]))
         for key in ("denoised", "mixed_processed", "removed"):
@@ -431,18 +480,184 @@ def main() -> int:
     say(f"[7 cli] python -m nhans_tpu_torch.cli.denoiser: 4 files, snr_est "
         f"{snr_cli:.4f}, {w:.1f} s with start-up")
 
+    # -- 8. training: one full-width step against the JAX package ----------
+    with np.load(GOLDEN_TRAIN) as z:
+        tgold = {k: z[k] for k in z.files}
+    check(str(tgold["input_sha256"]) == input_digest(
+        *golden_train_inputs().values()), "training golden inputs")
+    got = port_train_golden("cuda", tgold)
+    rel_loss = abs(got["loss"] - float(tgold["loss"])) / float(tgold["loss"])
+    rel_gn = (abs(got["grad_norm"] - float(tgold["grad_norm"]))
+              / float(tgold["grad_norm"]))
+    check(rel_loss <= TRAIN_LOSS_RTOL, f"golden step loss: rel {rel_loss}")
+    check(rel_gn <= TRAIN_GNORM_RTOL, f"golden step grad norm: rel {rel_gn}")
+    delta_errs = {}
+    for path in TRAIN_LAYERS:
+        want = tgold[f"delta/{path}"]
+        err = float(np.abs(got[f"delta/{path}"] - want).max()
+                    / np.abs(want).max())
+        check(err <= TRAIN_DELTA_RTOL, f"golden step update {path}: {err}")
+        delta_errs[path] = err
+    for path in TRAIN_STATS:
+        for name in ("pop_mean", "pop_variance"):
+            key = f"stats/{path}/{name}"
+            check(np.allclose(got[key], tgold[key], atol=1e-4, rtol=1e-3),
+                  f"golden step {key}")
+    say(f"[8 train golden] loss {got['loss']:.6f} (JAX {float(tgold['loss']):.6f},"
+        f" rel {rel_loss:.2g}), grad norm {got['grad_norm']:.5f} (JAX "
+        f"{float(tgold['grad_norm']):.5f}, rel {rel_gn:.2g}); updates, max "
+        "|diff| / max |delta|: " + ", ".join(
+            f"{k} {v:.2g}" for k, v in delta_errs.items()))
+
+    # -- 9. training through the command line, full width -------------------
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from nhans_tpu_torch.cli import train as cli_train
+    from nhans_tpu_torch.data.banks import BankIndexLoader, DeviceBanks
+    from nhans_tpu_torch.models import init_variables
+    from nhans_tpu_torch.train.step import step_generator
+
+    tmp = tempfile.mkdtemp(prefix="nhans_chip_smoke_")
+    try:
+        corpus = write_corpus(tmp, np.random.default_rng(9))
+
+        def train(name, *flags):
+            """cli.train with this corpus, monitored at every step;
+            (trainer, kernel launches, and from the metrics record by step:
+            losses, device ms by the trainer's CUDA events, input-wait
+            shares)."""
+            args = ["--speech_wav_dir", corpus[0], "--noise_wav_dir",
+                    corpus[1], "--checkpoint_dir", f"{tmp}/ck_{name}",
+                    "--summaries_dir", f"{tmp}/sum_{name}", "--eval_utts",
+                    "0", "--train_monitor_every", "1", *flags]
+            trainer = cli_train.build_trainer(args)
+            first = trainer.tstep
+            torch.cuda.synchronize()
+            stft_cuda.log_spectrogram_kernel.launches = 0
+            trainer.train()
+            torch.cuda.synchronize()
+            launches = stft_cuda.log_spectrogram_kernel.launches
+            check(launches == 4 * (trainer.tstep - first),
+                  f"{name}: {launches} kernel launches in "
+                  f"{trainer.tstep - first} steps, expected 4 a step")
+            with open(f"{tmp}/sum_{name}/nhans.jsonl") as f:
+                records = {r["step"]: r for r in map(json.loads, f)}
+            losses = {k: r["loss"] for k, r in records.items()}
+            check(all(np.isfinite(v) for v in losses.values()),
+                  f"{name}: losses finite")
+            ms = [r["step_device_ms"] for _, r in sorted(records.items())]
+            waits = [r["input_wait_frac"] for _, r in sorted(records.items())]
+            return trainer, launches, ms, losses, waits
+
+        def moved(trainer, before):
+            """Parameters and BatchNorm statistics left their init."""
+            state = trainer.model.state_dict()
+            for key in ("resblock1.conv1.w", "embedding.block1.conv1.w",
+                        "last_dense.w", "resblock1.bn1.pop_mean",
+                        "embedding.block1.bn1.pop_variance"):
+                check(not torch.equal(state[key].cpu(), before[key]),
+                      f"{key} did not move")
+
+        # denoiser, banked: 8 steps timed, checkpoints at 4 and 8
+        torch.cuda.reset_peak_memory_stats()
+        trainer, launches, ms, losses, _ = train(
+            "banked", "--batches", "8", "--eval_every", "4")
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        seeded = torch.Generator()
+        seeded.manual_seed(trainer.cfg.data.seed)
+        init = init_variables(trainer.cfg, seeded, "cpu").state_dict()
+        moved(trainer, init)
+        check(trainer.ckpt.steps() == [4, 8], "checkpoints at steps 4 and 8")
+        warm = ms[2:]
+        step_ms = float(np.median(warm))
+        # FLOPs of one step (forward and backward), counted by torch on the
+        # same banked step with a fresh generator
+        dbanks = DeviceBanks(trainer.cfg, dev)
+        idx = {k: torch.from_numpy(v).to(dev) for k, v in
+               next(BankIndexLoader(dbanks, trainer.batch_utts)).items()}
+        with FlopCounterMode(display=False) as counter:
+            trainer.step_fn(trainer.state, dbanks.banks, idx,
+                            step_generator(0, 0))
+        flops = counter.get_total_flops()
+        del dbanks
+        say(f"[9 train] denoiser banked, full width, {trainer.batch_utts} "
+            f"utterances x {trainer.cfg.data.slices_per_step} crops: losses "
+            + ", ".join(f"{v:.4f}" for _, v in sorted(losses.items()))
+            + f"; {launches} kernel launches in 8 steps; per step "
+            + ", ".join(f"{v:.1f}" for v in ms) + " ms (CUDA events, from "
+            "fetching the batch to the step's last kernel); warm "
+            f"median {step_ms:.1f} ms, {flops / 1e12:.3f} TFLOP a step, "
+            f"{flops / step_ms / 1e9:.2f} TFLOP/s; peak memory "
+            f"{peak_gb:.2f} GiB; on {smi}")
+        banked_launches = launches
+
+        # auto-resume: 4 steps and a checkpoint, then a new trainer on the
+        # same directory takes step 5 as the uninterrupted run did.  Its
+        # later steps drift apart at the rate two uninterrupted runs do:
+        # cuDNN's backward sums in a different order from run to run (the
+        # reference's default sgd keeps that drift linear; Adam's first
+        # steps turn it into lr-sized sign flips of near-zero gradients)
+        train("resume", "--batches", "4", "--eval_every", "4")
+        trainer2, _, _, resumed, _ = train("resume", "--batches", "6",
+                                           "--eval_every", "4")
+        rel = abs(resumed[5] - losses[5]) / abs(losses[5])
+        check(rel <= RESUME_RTOL, f"resumed step 5: loss {resumed[5]} "
+              f"against {losses[5]}")
+        say("  auto-resume from step 4: losses of steps 1-6 "
+            + ", ".join(f"{resumed[k]:.7f}" for k in sorted(resumed))
+            + " against " + ", ".join(f"{losses[k]:.7f}"
+                                      for k in sorted(resumed))
+            + f" uninterrupted; step 5 rel diff {rel:.2g}")
+        del trainer, trainer2
+
+        # denoiser, streaming from the host
+        trainer, launches, ms, losses, waits = train(
+            "stream", "--device_corpus", "off", "--batches", "6",
+            "--eval_every", "6")
+        check(not trainer.banked, "streaming run is not banked")
+        moved(trainer, init)
+        say(f"[9 train] denoiser streaming: losses "
+            + ", ".join(f"{v:.4f}" for _, v in sorted(losses.items()))
+            + f"; {launches} kernel launches in 6 steps; per step "
+            + ", ".join(f"{v:.1f}" for v in ms) + " ms (CUDA events, "
+            f"input wait included), warm median {np.median(ms[2:]):.1f} ms; "
+            "input wait share per step "
+            + ", ".join(f"{v:.3f}" for v in waits)
+            + f"; on {smi}")
+        del trainer
+
+        # separator, banked
+        trainer, launches, _, losses, _ = train(
+            "separator", "--task", "separator", "--batches", "3",
+            "--eval_every", "3")
+        check(trainer.banked, "separator run is banked")
+        moved(trainer, init)  # the same seeded init as the denoiser
+        say(f"[9 train] separator banked: losses "
+            + ", ".join(f"{v:.4f}" for _, v in sorted(losses.items()))
+            + f"; {launches} kernel launches in 3 steps")
+        del trainer
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
     # -- result ------------------------------------------------------------------
-    t = timings[(4, 160000, True)]
-    kernels = [{
-        "name": "log_spectrogram",
-        "route": "cuda",
-        "source": "nhans_tpu_torch/csrc/log_spectrogram.cu",
-        "replaces": "nhans_tpu/ops/stft_pallas.py:36",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-    }]
+    kernels = []
+    for path, key, n, shapes in (
+            ("serving", (4, 160000, True), serving_launches,
+             [(8, 32240), (4, 160000)]),
+            ("training", (16, 163600, False), banked_launches,
+             [(16, 163600), (16, 64000)])):
+        t = timings[key]
+        kernels.append({
+            "name": f"log_spectrogram ({path})",
+            "route": "cuda",
+            "source": "nhans_tpu_torch/csrc/log_spectrogram.cu",
+            "replaces": "nhans_tpu/ops/stft_pallas.py:36",
+            "launches": n,
+            "max_abs_err": max(kernel_errs[s] for s in shapes),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "shape": list(key[:2]), "with_reim": key[2]})
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(smi)
     say(json.dumps({"kernels": kernels}))

@@ -1,1 +1,2 @@
-"""Serving command lines: nhans_tpu_torch.cli.denoiser / .separator."""
+"""Command lines: nhans_tpu_torch.cli.denoiser / .separator (serving),
+.train and .seeds (training)."""

@@ -20,8 +20,10 @@ import os
 import sys
 
 import numpy as np
+import torch
 
 from nhans_tpu_torch.config import Config, add_inference_flags
+from nhans_tpu_torch.dsp import mixing as mx
 from nhans_tpu_torch.utils import wavio
 from nhans_tpu_torch.utils.device import resolve_device
 
@@ -31,11 +33,19 @@ def _sidecar(path: str, tag: str) -> str:
     return f"{base}_{tag}{ext or '.wav'}"
 
 
-def _check_freq_pad() -> None:
-    """NHANS_FREQ_PAD selects the JAX package's lane-padded tower, which
-    the port does not have yet: refuse it with a message, not a traceback."""
+def _check_freq_pad(num_features: int) -> None:
+    """NHANS_FREQ_PAD above ``num_features`` selects the JAX package's
+    lane-padded tower, which the port does not have yet: refuse it, and a
+    value that is not an integer, with a message, not a traceback.  Values
+    up to ``num_features`` serve the native geometry, as they do in the
+    JAX package."""
     val = os.environ.get("NHANS_FREQ_PAD", "").strip()
-    if val not in ("", "0"):
+    try:
+        pad = int(val or 0)
+    except ValueError:
+        sys.exit(f"NHANS_FREQ_PAD={val!r} is not an integer; unset it or "
+                 "set it to 0")
+    if pad > num_features:
         sys.exit(f"NHANS_FREQ_PAD={val!r}: the lane-padded tower geometry "
                  "(freq_pad_to) is not ported to nhans_tpu_torch yet (see "
                  "ROADMAP.md, Queue 1); unset NHANS_FREQ_PAD or set it to 0")
@@ -62,21 +72,37 @@ def _silent(fs: int) -> np.ndarray:
     return np.zeros(fs, np.float64)
 
 
+def demo_mix(cfg: Config, task: str, clean: np.ndarray, pos: np.ndarray,
+             neg: np.ndarray) -> np.ndarray:
+    """--demo: mix the clean input with the contexts at 0 dB first (the
+    reference's apply_demo).  Returns an int16-scale float64 signal, as
+    the Enhancer expects: the mixers normalise to a peak of 1, so the
+    mixture is scaled back by 32767."""
+    c = clean / (np.max(np.abs(clean)) + 1e-6)
+    n = cfg.audio.trim_to_whole_frames(len(c))
+    c = torch.as_tensor(c[:n], dtype=torch.float32)
+    ng = torch.as_tensor(np.resize(neg / (np.max(np.abs(neg)) + 1e-6), n),
+                         dtype=torch.float32)
+    if task == "denoiser":
+        p = torch.as_tensor(np.resize(pos / (np.max(np.abs(pos)) + 1e-6), n),
+                            dtype=torch.float32)
+        mixed = mx.mix_two_noise(c, p, ng, n, n, n, 0.0, 0.0)[0]
+    else:
+        mixed = mx.mix_one_noise(c, ng, n, n, 0.0)[2]
+    return mixed.numpy().astype(np.float64) * 32767.0
+
+
 def run(task: str, argv=None) -> None:
     parser = argparse.ArgumentParser(
         prog=f"python -m nhans_tpu_torch.cli.{task}",
         description=f"N-HANS {task} (PyTorch / CUDA)")
     add_inference_flags(parser, task=task)
     args = parser.parse_args(argv)
-    _check_freq_pad()
-    if args.demo:
-        sys.exit("--demo needs the mixing module (dsp/mixing.py), which is "
-                 "not ported to nhans_tpu_torch yet (see ROADMAP.md, "
-                 "Queue 1); mix the input beforehand instead")
+    base = Config.denoiser() if task == "denoiser" else Config.separator()
+    _check_freq_pad(base.model.num_features)
     if not args.checkpoint:
         sys.exit(f"--checkpoint is required: a flat .npz of weights, e.g. "
                  f"docs/quality/{task}_q5_swa.npz")
-    base = Config.denoiser() if task == "denoiser" else Config.separator()
     cfg = base.replace(audio=dataclasses.replace(
         base.audio, recon_residual_cap=args.recon_residual_cap))
     fs = args.Fs
@@ -120,10 +146,14 @@ def run(task: str, argv=None) -> None:
         return enhancer.enhance_batch(
             waves, [ctx_a] * len(waves), [ctx_b] * len(waves))
 
+    def read_input(path: str) -> np.ndarray:
+        x = _read(path, fs)
+        return demo_mix(cfg, task, x, pos, neg) if args.demo else x
+
     batch = 8 if len(inputs) > 1 else 1
     for i in range(0, len(inputs), batch):
         chunk_in = inputs[i:i + batch]
-        res = run_batch([_read(p, fs) for p in chunk_in])
+        res = run_batch([read_input(p) for p in chunk_in])
         for j, out_path in enumerate(outputs[i:i + batch]):
             den = res["denoised"][j]
             mix = res["mixed_processed"][j]

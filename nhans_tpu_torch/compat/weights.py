@@ -5,7 +5,8 @@ The ``.npz`` holds flax variables flattened with ``/``: float16
 ``tools/ckpt_npz.py``).  The port's modules carry the flax names, so a key
 maps to a ``state_dict`` key by dropping the collection and reading ``/``
 as ``.``.  Conv kernels go from HWIO to OIHW; dense ``[in, out]`` weights
-are kept as they are; population statistics become buffers.
+are kept as they are; population statistics become buffers.  ``to_flax``
+is the way back, for checkpoints.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ def from_flax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         coll, _, path = key.partition("/")
         if coll not in _COLLECTIONS or not path:
             raise KeyError(f"unexpected checkpoint key {key!r}")
-        arr = np.asarray(value, np.float32)
+        arr = np.array(value, np.float32)  # a writable copy
         if arr.ndim == 4:  # conv kernel HWIO -> OIHW
             arr = arr.transpose(3, 2, 0, 1)
         name = path.replace("/", ".")
@@ -33,6 +34,22 @@ def from_flax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
             raise KeyError(f"checkpoint key {key!r} maps onto {name!r} twice")
         state[name] = torch.from_numpy(np.ascontiguousarray(arr))
     return state
+
+
+def to_flax(tensors: Dict[str, torch.Tensor],
+            collection: str) -> Dict[str, np.ndarray]:
+    """Tensors keyed by ``state_dict`` name -> flat float32 flax arrays
+    ``<collection>/<path>`` (copies), conv kernels back from OIHW to
+    HWIO."""
+    flat = {}
+    for name, value in tensors.items():
+        arr = value.detach().to("cpu", torch.float32).numpy()
+        if arr.ndim == 4:  # conv kernel OIHW -> HWIO
+            arr = arr.transpose(2, 3, 1, 0)
+        # a copy: a CPU tensor's numpy() shares its storage
+        flat[f"{collection}/{name.replace('.', '/')}"] = np.array(arr,
+                                                                  order="C")
+    return flat
 
 
 def load_npz(path: str) -> Dict[str, torch.Tensor]:

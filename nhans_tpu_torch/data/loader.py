@@ -1,0 +1,231 @@
+"""The streaming training loader: worker threads that only decode wavs
+into fixed-shape int16 buffers, and a prefetch thread that moves them to
+the device.  The port of ``nhans_tpu/data/loader.py::TrainLoader`` and
+``prefetch_to_device``, for one process; decoding goes through the
+port's ``utils/wavio.py``.
+
+Mixing, spectrograms and crops happen on the device
+(``data/pipeline.py``).  A worker's exception is raised in the consumer,
+not swallowed.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Dict, Iterator, List, Optional
+
+import numpy as np
+import torch
+
+from nhans_tpu_torch.config import Config
+from nhans_tpu_torch.data.banks import build_disjoint_table
+from nhans_tpu_torch.data.manifest import load_seeds
+from nhans_tpu_torch.utils import wavio
+
+
+def _decode(path: str, max_samples: int) -> tuple:
+    """(samples capped at max_samples, n, whole-file peak): the peak is
+    that of the whole file, so that normalisation on the device matches
+    the reference's even when the buffer cuts a long file."""
+    x = np.asarray(wavio.read_wav_strict(path), np.float32)
+    peak = float(np.max(np.abs(x))) if len(x) else 0.0
+    n = min(len(x), max_samples)
+    return x[:n], n, peak
+
+
+def bucket_length(cfg: Config, longest: int) -> int:
+    """The smallest length bucket (samples) that holds ``longest``,
+    ``max_samples`` at most."""
+    L, fs = cfg.data.max_samples, cfg.audio.sample_rate
+    for sec in sorted(cfg.data.length_buckets):
+        bs = min(int(sec * fs), L)
+        if bs >= longest:
+            return bs
+    return L
+
+
+class TrainLoader:
+    """Endless shuffled stream of raw-waveform batches.
+
+    Yields dicts: clean/noise_a/noise_b [B, bucket] int16 (or float32
+    with ``transfer_dtype="float32"``), un-normalised, the valid lengths
+    and the whole-file peaks [B, 3].  For the separator ``noise_a`` is
+    another speech utterance, from another real voice where the corpus
+    has two or more, and ``noise_b`` is zeros."""
+
+    def __init__(self, cfg: Config, batch_utts: int, split: str = "train",
+                 seed: Optional[int] = None,
+                 num_workers: Optional[int] = None):
+        self.cfg = cfg
+        self.batch = batch_utts
+        self.L = cfg.data.max_samples
+        self.two_noise = cfg.task.two_noise_mixing
+        self.speech = load_seeds(cfg.data.speech_wav_dir, split)
+        self.noise = (load_seeds(cfg.data.noise_wav_dir, split)
+                      if self.two_noise else self.speech)
+        if not self.speech or not self.noise:
+            raise ValueError("empty manifest(s)")
+        self._other: Optional[List[np.ndarray]] = None
+        if not self.two_noise:
+            self._other = build_disjoint_table(self.speech)
+        self._q: "queue.Queue" = queue.Queue(maxsize=cfg.data.prefetch * 2)
+        self._err: List[BaseException] = []
+        self._stop = threading.Event()
+        # decoded-file cache: path -> (samples[:n] in the wire type, n, peak)
+        self._cache: Dict[str, tuple] = {}
+        self._cache_bytes = 0
+        self._cache_budget = cfg.data.decode_cache_mb * (1 << 20)
+        self._cache_lock = threading.Lock()
+        base_seed = cfg.data.seed if seed is None else seed
+        self._threads = []
+        for w in range(num_workers or cfg.data.num_workers):
+            t = threading.Thread(target=self._worker,
+                                 args=(base_seed * 1000 + w,), daemon=True)
+            t.start()
+            self._threads.append(t)
+
+    def _paths(self, rng) -> tuple:
+        B = self.batch
+        cidx = [int(rng.integers(len(self.speech))) for _ in range(B)]
+        cpaths = [self.speech[i] for i in cidx]
+        if self._other is not None:
+            apaths = [self.speech[self._other[i][rng.integers(
+                len(self._other[i]))]] for i in cidx]
+        else:
+            apaths = [self.noise[rng.integers(len(self.noise))]
+                      for _ in range(B)]
+        bpaths = ([self.noise[rng.integers(len(self.noise))]
+                   for _ in range(B)] if self.two_noise else [])
+        return cpaths, apaths, bpaths
+
+    def _records(self, paths, wire) -> Dict[str, tuple]:
+        """Decoded records of ``paths``, from the cache where they are."""
+        local = {}
+        for p in sorted({p for p in paths if p not in self._cache}):
+            x, n, pk = _decode(p, self.L)
+            if wire == np.int16:
+                x = np.rint(x).astype(np.int16)
+            local[p] = (np.ascontiguousarray(x[:n]), n, pk)
+        if self._cache_budget and local:
+            with self._cache_lock:
+                for p, rec in local.items():
+                    sz = rec[0].nbytes
+                    if (p not in self._cache and
+                            self._cache_bytes + sz <= self._cache_budget):
+                        self._cache[p] = rec
+                        self._cache_bytes += sz
+        return {p: self._cache.get(p) or local[p] for p in paths}
+
+    def _batch(self, rng) -> Dict[str, np.ndarray]:
+        B = self.batch
+        wire = (np.int16 if self.cfg.data.transfer_dtype == "int16"
+                else np.float32)
+        cpaths, apaths, bpaths = self._paths(rng)
+        rec = self._records(cpaths + apaths + bpaths, wire)
+        # all three buffers ride the clean batch's length bucket: noise
+        # past the clean length is never used
+        bucket = bucket_length(self.cfg, max(rec[p][1] for p in cpaths))
+        out = {k: np.zeros((B, bucket), wire)
+               for k in ("clean", "noise_a", "noise_b")}
+        lens = {k: np.zeros((B,), np.int32)
+                for k in ("clean_len", "len_a", "len_b")}
+        peaks = np.zeros((B, 3), np.float32)
+        for col, (buf, ln, plist) in enumerate(
+                (("clean", "clean_len", cpaths), ("noise_a", "len_a", apaths),
+                 ("noise_b", "len_b", bpaths))):
+            for b, p in enumerate(plist):
+                x, n, pk = rec[p]
+                n = min(n, bucket)
+                out[buf][b, :n] = x[:n]
+                lens[ln][b] = n
+                peaks[b, col] = pk
+        return {**out, **lens, "peaks": peaks}
+
+    def _worker(self, seed: int) -> None:
+        rng = np.random.default_rng(seed)
+        try:
+            while not self._stop.is_set():
+                batch = self._batch(rng)
+                while not self._stop.is_set():
+                    try:
+                        self._q.put(batch, timeout=0.5)
+                        break
+                    except queue.Full:
+                        continue
+        except BaseException as e:  # surfaced in __next__
+            self._err.append(e)
+            self._stop.set()
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        return self
+
+    def __next__(self) -> Dict[str, np.ndarray]:
+        while True:
+            if self._err:
+                raise RuntimeError("data worker failed") from self._err[0]
+            try:
+                return self._q.get(timeout=1.0)
+            except queue.Empty:
+                continue
+
+    def close(self) -> None:
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=2.0)
+
+
+def prefetch_to_device(iterator, device, depth: int = 2):
+    """Move the iterator's batches (dicts of numpy arrays) to ``device``
+    on a background thread, ``depth`` batches ahead of the consumer.  On a
+    card the host arrays are pinned and copied without blocking the
+    thread."""
+    device = torch.device(device)
+    pin = device.type == "cuda"
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+    err: List[BaseException] = []
+
+    def put(batch):
+        out = {}
+        for k, v in batch.items():
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            if pin:
+                t = t.pin_memory()
+            out[k] = t.to(device, non_blocking=pin)
+        if pin:
+            torch.cuda.current_stream(device).synchronize()
+        return out
+
+    def pump():
+        try:
+            for batch in iterator:
+                placed = put(batch)
+                while not stop.is_set():
+                    try:
+                        q.put(placed, timeout=0.5)
+                        break
+                    except queue.Full:
+                        continue
+                if stop.is_set():
+                    return
+            q.put(None)
+        except BaseException as e:
+            err.append(e)
+            try:
+                q.put(None, timeout=0.1)
+            except queue.Full:
+                pass
+
+    t = threading.Thread(target=pump, daemon=True)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is None:
+                if err:
+                    raise RuntimeError("prefetch failed") from err[0]
+                return
+            yield item
+    finally:
+        stop.set()

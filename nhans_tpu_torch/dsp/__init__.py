@@ -1,1 +1,2 @@
-"""Signal processing: STFT / iSTFT with tf.signal semantics."""
+"""Signal processing: STFT / iSTFT with tf.signal semantics, and the SNR
+mixing of the training batch."""

@@ -17,7 +17,6 @@ outputs are float32, as with the JAX ``Enhancer(out_wire="float32")``.
 from __future__ import annotations
 
 import collections
-import contextlib
 import hashlib
 from typing import Dict, Tuple
 
@@ -28,25 +27,7 @@ import torch.nn.functional as F
 from nhans_tpu_torch.config import Config
 from nhans_tpu_torch.dsp import spectral as sp
 from nhans_tpu_torch.nn.model import NHANSNet
-from nhans_tpu_torch.utils.device import resolve_device
-
-
-@contextlib.contextmanager
-def _full_float32():
-    """TF32 off in cuDNN and in matmuls while the serving path launches its
-    device work, and the process's settings back afterwards.  The JAX
-    reference takes its convolutions and DFTs in full float32
-    (Precision.HIGHEST); cuDNN runs float32 convolutions in TF32 by
-    default, which keeps about three decimal digits.  The flags are read
-    when a kernel is launched, so work still running afterwards keeps
-    them."""
-    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
-    saved = cudnn.allow_tf32, matmul.allow_tf32
-    cudnn.allow_tf32 = matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        cudnn.allow_tf32, matmul.allow_tf32 = saved
+from nhans_tpu_torch.utils.device import full_float32, resolve_device
 
 
 def context_samples(cfg: Config) -> int:
@@ -96,7 +77,7 @@ class Enhancer:
         return next((b for b in self.buckets if b >= num_samples), num_samples)
 
     @torch.inference_mode()
-    @_full_float32()
+    @full_float32()
     def _encode_contexts(self, ctx: np.ndarray, ints: np.ndarray,
                          peaks: np.ndarray):
         """(emb_a, emb_b) [B, 512] on the device for int16 context buffers
@@ -159,7 +140,7 @@ class Enhancer:
         return out.reshape(B, nframes, nfeat)
 
     @torch.inference_mode()
-    @_full_float32()
+    @full_float32()
     def _run(self, mixed: np.ndarray, ints: np.ndarray, peaks: np.ndarray,
              emb_a: torch.Tensor, emb_b: torch.Tensor):
         """One batch on the device.  mixed [B, L] int16 raw samples;

@@ -1,13 +1,11 @@
-"""Layers with the JAX package's semantics (``nhans_tpu/nn/blocks.py``),
-for inference.
+"""Layers with the JAX package's semantics (``nhans_tpu/nn/blocks.py``).
 
 Parameter names follow the flax modules (``w``, ``b``, ``beta``,
 ``gamma``, ``pop_mean``, ``pop_variance``) so that a flax checkpoint maps
 onto them name for name (``compat/weights.py``).  Convolutions run NCHW
 with OIHW weights; ``Dense`` keeps flax's ``[in, out]`` weight.
-
-Training semantics of ``BatchNorm`` (biased batch moments, population EMA)
-come with the training slice of the port.
+``BatchNorm`` follows the module's ``training`` flag: batch moments and
+the population EMA in training, the population statistics otherwise.
 """
 
 from __future__ import annotations
@@ -28,10 +26,13 @@ def same_pads(n: int, k: int, s: int) -> Tuple[int, int, int]:
 
 
 class Dense(nn.Module):
-    """``x @ w (+ b)`` with ``w`` laid out [in, out]."""
+    """``x @ w (+ b)`` with ``w`` laid out [in, out].  ``w_std`` and
+    ``b_init`` are what ``models.init_variables`` fills them with."""
 
-    def __init__(self, in_features: int, features: int, use_bias: bool = True):
+    def __init__(self, in_features: int, features: int, use_bias: bool = True,
+                 w_std: float = 0.01, b_init: float = 0.0):
         super().__init__()
+        self.w_std, self.b_init = w_std, b_init
         self.w = nn.Parameter(torch.zeros(in_features, features))
         self.b = nn.Parameter(torch.zeros(features)) if use_bias else None
 
@@ -48,8 +49,10 @@ class Conv(nn.Module):
 
     def __init__(self, in_features: int, features: int,
                  kernel_size: Sequence[int], strides: Sequence[int] = (1, 1),
-                 padding: str = "SAME", use_bias: bool = True):
+                 padding: str = "SAME", use_bias: bool = True,
+                 w_std: float = 0.01, b_init: float = 0.0):
         super().__init__()
+        self.w_std, self.b_init = w_std, b_init
         if padding not in ("SAME", "VALID"):
             raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
         self.kernel_size = tuple(kernel_size)
@@ -69,22 +72,62 @@ class Conv(nn.Module):
         return F.conv2d(x, self.w, self.b, stride=self.strides)
 
 
-class BatchNorm(nn.Module):
-    """Inference batch norm over dim 1 (channels of NCHW, features of
-    [N, C]) from the population statistics, eps 1e-3:
-    ``(x - pop_mean) * rsqrt(pop_variance + eps) * gamma + beta``."""
+def trunc_normal_(w: torch.Tensor, std: float,
+                  generator: torch.Generator) -> torch.Tensor:
+    """Fill ``w`` as TF's ``truncated_normal_initializer(std)``: standard
+    normal draws, those beyond two sigma drawn again, then scaled by
+    ``std`` with no variance correction; zeros when ``std`` is 0.  Draws
+    on the generator's device."""
+    with torch.no_grad():
+        if std == 0.0:
+            return w.zero_()
+        u = torch.randn(w.numel(), generator=generator,
+                        device=generator.device)
+        out = (u.abs() > 2.0).nonzero().flatten()
+        while out.numel():
+            u[out] = torch.randn(out.numel(), generator=generator,
+                                 device=generator.device)
+            out = out[u[out].abs() > 2.0]
+        return w.copy_(u.view(w.shape) * std)
 
-    def __init__(self, features: int, eps: float = 1e-3):
+
+class BatchNorm(nn.Module):
+    """Batch norm over dim 1 (channels of NCHW, features of [N, C]), eps
+    1e-3: ``(x - mean) * rsqrt(var + eps) * gamma + beta``.
+
+    In training the moments are the batch's, biased, ``E[x^2] - mean^2``
+    in float32 over every dim but the channel, and gradients flow through
+    them; each forward then moves the population statistics,
+    ``pop = decay * pop + (1 - decay) * batch``, from the detached
+    moments.  ``torch.nn.BatchNorm2d`` keeps the unbiased variance there
+    and cannot stand in.  Otherwise (the default, as flax's
+    ``train=False``) the population statistics are used."""
+
+    def __init__(self, features: int, eps: float = 1e-3,
+                 decay: float = 0.95):
         super().__init__()
         self.eps = eps
+        self.decay = decay
         self.beta = nn.Parameter(torch.zeros(features))
         self.gamma = nn.Parameter(torch.ones(features))
         self.register_buffer("pop_mean", torch.zeros(features))
         self.register_buffer("pop_variance", torch.ones(features))
+        self.train(False)  # inference unless put in training
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = (-1,) + (1,) * (x.ndim - 2)
-        inv = torch.rsqrt(self.pop_variance + self.eps) * self.gamma
-        return ((x - self.pop_mean.view(shape)) * inv.view(shape)
+        if self.training:
+            dims = (0,) + tuple(range(2, x.ndim))
+            x32 = x.to(torch.float32)
+            mean = torch.mean(x32, dim=dims)
+            var = torch.mean(x32 * x32, dim=dims) - mean * mean
+            with torch.no_grad():
+                d = self.decay
+                self.pop_mean.mul_(d).add_((1 - d) * mean.detach())
+                self.pop_variance.mul_(d).add_((1 - d) * var.detach())
+        else:
+            mean, var = self.pop_mean, self.pop_variance
+        inv = torch.rsqrt(var + self.eps) * self.gamma
+        return ((x - mean.view(shape)) * inv.view(shape)
                 + self.beta.view(shape))
 

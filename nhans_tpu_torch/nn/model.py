@@ -1,5 +1,5 @@
-"""The N-HANS conditional ResNet as torch.nn modules, for inference: the
-port of ``nhans_tpu/nn/model.py``.
+"""The N-HANS conditional ResNet as torch.nn modules: the port of
+``nhans_tpu/nn/model.py``.
 
 * a shared context tower: 4 strided residual conv blocks
   (64 -> 128 -> 256 -> 512) and a global average pool -> 512-d embedding,
@@ -13,35 +13,41 @@ port of ``nhans_tpu/nn/model.py``.
 The public functions take ``[B, W, F]`` (time, frequency) as the JAX
 package does; inside, tensors are NCHW with time as H and frequency as W.
 Module and parameter names are the flax names, so ``state_dict`` keys are
-the checkpoint's keys with ``/`` read as ``.``.
+the checkpoint's keys with ``/`` read as ``.``.  ``model.train()`` gives
+the training forward (batch moments and the population EMA in every
+BatchNorm, and the optional context-embedding jitter); ``model.eval()``
+the serving one.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from nhans_tpu_torch.config import ModelConfig
 from nhans_tpu_torch.nn.blocks import BatchNorm, Conv, Dense, same_pads
+from nhans_tpu_torch.utils.device import to_device
 
 
 class PositionalMLP(nn.Module):
     """Embeds positions 0..n-1 through a 1 -> 50 -> 50 -> out_dim MLP with
     BN + ReLU between the layers.  -> [n, out_dim]"""
 
-    def __init__(self, out_dim: int, hidden: int = 50, bn_eps: float = 1e-3):
+    def __init__(self, out_dim: int, hidden: int = 50, bn_eps: float = 1e-3,
+                 bn_decay: float = 0.95, w_std: float = 0.01):
         super().__init__()
-        self.dense1 = Dense(1, hidden, use_bias=False)
-        self.bn1 = BatchNorm(hidden, bn_eps)
-        self.dense2 = Dense(hidden, hidden, use_bias=False)
-        self.bn2 = BatchNorm(hidden, bn_eps)
-        self.dense3 = Dense(hidden, out_dim, use_bias=False)
+        self.dense1 = Dense(1, hidden, use_bias=False, w_std=w_std)
+        self.bn1 = BatchNorm(hidden, bn_eps, bn_decay)
+        self.dense2 = Dense(hidden, hidden, use_bias=False, w_std=w_std)
+        self.bn2 = BatchNorm(hidden, bn_eps, bn_decay)
+        self.dense3 = Dense(hidden, out_dim, use_bias=False, w_std=0.0)
 
     def forward(self, n: int, device) -> torch.Tensor:
-        x = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+        x = torch.arange(n, dtype=self.dense1.w.dtype, device=device)[:, None]
         x = F.relu(self.bn1(self.dense1(x)))
         x = F.relu(self.bn2(self.dense2(x)))
         return self.dense3(x)
@@ -52,16 +58,19 @@ class ContextBlock(nn.Module):
     the channel count changes."""
 
     def __init__(self, in_features: int, features: int, kernel: Sequence[int],
-                 strides: Sequence[int], bn_eps: float = 1e-3):
+                 strides: Sequence[int], bn_eps: float = 1e-3,
+                 bn_decay: float = 0.95, w_std: float = 0.01,
+                 b_init: float = 0.0):
         super().__init__()
         _check_residual(in_features, features, strides)
+        p = dict(w_std=w_std, b_init=b_init)
         self.conv1 = Conv(in_features, features, kernel, strides,
-                          use_bias=False)
-        self.bn1 = BatchNorm(features, bn_eps)
-        self.conv2 = Conv(features, features, kernel, (1, 1))
-        self.transform = (Conv(in_features, features, (1, 1), strides)
+                          use_bias=False, **p)
+        self.bn1 = BatchNorm(features, bn_eps, bn_decay)
+        self.conv2 = Conv(features, features, kernel, (1, 1), **p)
+        self.transform = (Conv(in_features, features, (1, 1), strides, **p)
                           if in_features != features else None)
-        self.bn_out = BatchNorm(features, bn_eps)
+        self.bn_out = BatchNorm(features, bn_eps, bn_decay)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         path1 = F.relu(self.bn1(self.conv1(x)))
@@ -78,7 +87,8 @@ class ContextEncoder(nn.Module):
         cin = 1
         for i, (kernel, strides, features) in enumerate(cfg.context_blocks):
             self.add_module(f"block{i + 1}", ContextBlock(
-                cin, features, kernel, strides, cfg.bn_eps))
+                cin, features, kernel, strides, cfg.bn_eps, cfg.bn_decay,
+                cfg.w_std, cfg.b_init))
             cin = features
 
     def forward(self, ctx: torch.Tensor) -> torch.Tensor:
@@ -94,12 +104,13 @@ class Inject(nn.Module):
     position MLP is evaluated at the size of the tensor it is added to."""
 
     def __init__(self, features: int, embedding_dim: int = 512,
-                 hidden: int = 50, bn_eps: float = 1e-3):
+                 hidden: int = 50, bn_eps: float = 1e-3,
+                 bn_decay: float = 0.95, w_std: float = 0.01):
         super().__init__()
-        self.proj_a = Dense(embedding_dim, features)
-        self.proj_b = Dense(embedding_dim, features)
-        self.temb = PositionalMLP(features, hidden, bn_eps)
-        self.femb = PositionalMLP(features, hidden, bn_eps)
+        self.proj_a = Dense(embedding_dim, features, w_std=0.0)
+        self.proj_b = Dense(embedding_dim, features, w_std=0.0)
+        self.temb = PositionalMLP(features, hidden, bn_eps, bn_decay, w_std)
+        self.femb = PositionalMLP(features, hidden, bn_eps, bn_decay, w_std)
 
     def forward(self, x: torch.Tensor, emb_a: torch.Tensor,
                 emb_b: torch.Tensor) -> torch.Tensor:
@@ -116,19 +127,22 @@ class CondResBlock(nn.Module):
 
     def __init__(self, in_features: int, features: int, kernel: int,
                  stride: int, embedding_dim: int = 512, hidden: int = 50,
-                 bn_eps: float = 1e-3):
+                 bn_eps: float = 1e-3, bn_decay: float = 0.95,
+                 w_std: float = 0.01, b_init: float = 0.0):
         super().__init__()
         k, s = kernel, stride
         _check_residual(in_features, features, (s, s))
+        p = dict(w_std=w_std, b_init=b_init)
+        inj = (features, embedding_dim, hidden, bn_eps, bn_decay, w_std)
         self.conv1 = Conv(in_features, features, (k, k), (s, s),
-                          use_bias=False)
-        self.inject1 = Inject(features, embedding_dim, hidden, bn_eps)
-        self.bn1 = BatchNorm(features, bn_eps)
-        self.conv2 = Conv(features, features, (k, k), (1, 1))
-        self.inject2 = Inject(features, embedding_dim, hidden, bn_eps)
-        self.transform = (Conv(in_features, features, (1, 1), (s, s))
+                          use_bias=False, **p)
+        self.inject1 = Inject(*inj)
+        self.bn1 = BatchNorm(features, bn_eps, bn_decay)
+        self.conv2 = Conv(features, features, (k, k), (1, 1), **p)
+        self.inject2 = Inject(*inj)
+        self.transform = (Conv(in_features, features, (1, 1), (s, s), **p)
                           if in_features != features else None)
-        self.bn_out = BatchNorm(features, bn_eps)
+        self.bn_out = BatchNorm(features, bn_eps, bn_decay)
 
     def forward(self, x: torch.Tensor, emb_a: torch.Tensor,
                 emb_b: torch.Tensor) -> torch.Tensor:
@@ -169,27 +183,42 @@ class NHANSNet(nn.Module):
         cin, t, f = 1, cfg.window_frames, cfg.num_features
         for i, (k, s, c) in enumerate(cfg.main_blocks):
             self.add_module(f"resblock{i + 1}", CondResBlock(
-                cin, c, k, s, emb_dim, cfg.pos_embed_hidden, cfg.bn_eps))
+                cin, c, k, s, emb_dim, cfg.pos_embed_hidden, cfg.bn_eps,
+                cfg.bn_decay, cfg.w_std, cfg.b_init))
             cin, t, f = c, same_pads(t, k, s)[2], same_pads(f, k, s)[2]
         self.num_blocks = len(cfg.main_blocks)
         self.last_conv = Conv(cin, cfg.embedding_dim, (t, 1),
-                              padding="VALID", use_bias=False)
-        self.last_bn = BatchNorm(cfg.embedding_dim, cfg.bn_eps)
-        self.last_dense = Dense(f * cfg.embedding_dim, cfg.num_features)
+                              padding="VALID", use_bias=False,
+                              w_std=cfg.w_std)
+        self.last_bn = BatchNorm(cfg.embedding_dim, cfg.bn_eps, cfg.bn_decay)
+        self.last_dense = Dense(f * cfg.embedding_dim, cfg.num_features,
+                                w_std=0.0)
+        self.eval()  # serving unless put in training, as flax's train=False
 
     def forward(self, mixed: Optional[torch.Tensor],
                 ctx_a: Optional[torch.Tensor] = None,
                 ctx_b: Optional[torch.Tensor] = None,
                 emb_a: Optional[torch.Tensor] = None,
-                emb_b: Optional[torch.Tensor] = None):
+                emb_b: Optional[torch.Tensor] = None,
+                embed_noise: Optional[torch.Generator] = None):
         """``mixed`` [B, W, F] windows; either the context spectrograms
         ``ctx_a``/``ctx_b`` [B, C, F] or their precomputed 512-d embeddings
         ``emb_a``/``emb_b``.  With ``mixed=None`` it only encodes the
-        contexts and returns (emb_a, emb_b)."""
+        contexts and returns (emb_a, emb_b).
+
+        The shared context tower runs on ``ctx_a`` first and ``ctx_b``
+        second, so in training its BatchNorms move their population
+        statistics twice, in that order.  In training with
+        ``cfg.ctx_embed_noise > 0`` and a generator ``embed_noise``, each
+        embedding gets Gaussian noise of that size times its RMS."""
         if emb_a is None:
             emb_a = self.embedding(ctx_a)
         if emb_b is None:
             emb_b = self.embedding(ctx_b)
+        sigma = self.cfg.ctx_embed_noise
+        if self.training and sigma > 0.0 and embed_noise is not None:
+            emb_a = _jitter(emb_a, sigma, embed_noise)
+            emb_b = _jitter(emb_b, sigma, embed_noise)
         if mixed is None:
             return emb_a, emb_b
         out = mixed[:, None]
@@ -207,3 +236,29 @@ class NHANSNet(nn.Module):
         res = self(mixed, ctx_a, ctx_b)
         return mixed[:, self.cfg.window_frames // 2, :] + res
 
+
+
+def _jitter(e: torch.Tensor, sigma: float,
+            generator: torch.Generator) -> torch.Tensor:
+    """e + sigma * RMS(e) * N(0, 1), the RMS over the embedding axis."""
+    rms = torch.sqrt(torch.mean(e * e, dim=-1, keepdim=True) + 1e-8)
+    z = torch.randn(e.shape, generator=generator, device=generator.device)
+    return e + sigma * rms * to_device(z, e.device).to(e.dtype)
+
+
+def freq_loss_weights(num_features: int, hi: float = 2.0, lo: float = 1.0,
+                      device=None) -> torch.Tensor:
+    """linspace(hi -> lo) weights over the frequency bins."""
+    w = torch.from_numpy(np.linspace(hi, lo, num_features, dtype=np.float32))
+    return w if device is None else to_device(w, device)
+
+
+def freq_weighted_mse(denoised: torch.Tensor, target: torch.Tensor,
+                      weights: Optional[torch.Tensor] = None):
+    """(mean loss, per-example loss) of the frequency-weighted MSE."""
+    if weights is None:
+        weights = freq_loss_weights(denoised.shape[-1],
+                                    device=denoised.device)
+    se = torch.square(denoised - target)
+    example_loss = torch.mean(se * weights, dim=-1)
+    return torch.mean(example_loss), example_loss

@@ -1,38 +1,81 @@
-"""Timing of device work with CUDA events, for the scripts that measure
-the port on the card (``chip_smoke.py``, ``tools/spectrogram_anatomy.py``).
+"""Timing of device work on the card, for the scripts that measure the
+port there (``chip_smoke.py`` and the tools in this package).
 
 ``device_ms`` holds the stream with a sleep kernel while the host enqueues
-the timed calls, so the events time the device alone; ``host_paced_ms``
-is the earlier method (events around calls made back to back), which for
-a call shorter than its own host time measures the host.  It is kept for
-one slice only, so that the spectrogram kernel's first device times can
-be set beside the host-paced ones they replace; the next slice removes
-it, with its use in ``chip_smoke.py``.
+the timed calls, so the events time the device alone.  (Events around
+calls made back to back, the device idle at the first one, time the host
+for a call shorter than its own host time.)  ``kernel_summary`` and
+``print_kernels`` read a ``torch.profiler`` trace for the profiling
+tools: the device time by kind of kernel and the kernels with the most.
 """
 
 from __future__ import annotations
 
+import subprocess
 import time
 
 import torch
 
+# CUPTI reports its own buffer handling as rows of device time
+_CUPTI_ROWS = ("Command Buffer Full", "Buffer Flush", "Activity Buffer Request")
+# kernel name fragments by kind, first match wins
+_KINDS = (("spectrogram kernel", ("log_spectrogram",)),
+          ("convolution (cuDNN)", ("cudnn", "xmma", "implicit", "winograd",
+                                   "fft", "conv", "sm90_", "cutlass",
+                                   "gemm", "dgrad", "wgrad", "complex",
+                                   "region_transform")),
+          ("reduction", ("reduce", "Reduce")),
+          ("elementwise and copies", ("elementwise", "Elementwise", "copy",
+                                      "Copy", "fill", "Fill", "index",
+                                      "Index", "gather", "Gather",
+                                      "scatter", "cat", "pad")))
 
-def host_paced_ms(fn, reps=20, warmup=3):
-    """Mean time of fn() in ms by CUDA events around reps calls made back
-    to back, the device idle at the first event.  Where a call enqueues
-    its work faster than the host makes the next call, this is the host's
-    time, not the device's."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+
+def card() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def kernel_kind(name: str) -> str:
+    for kind, keys in _KINDS:
+        if any(k in name for k in keys):
+            return kind
+    return "other"
+
+
+def kernel_summary(prof, per: int = 1) -> dict:
+    """The kernels of a trace (operator rows repeat their kernels' time;
+    CUPTI's own rows are dropped), most device time first, and per
+    ``per`` calls: the summed kernel time ``busy_ms``, the ``launches``
+    and the ms by kind of kernel."""
+    from torch.autograd import DeviceType
+
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.key not in _CUPTI_ROWS
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    kinds = {}
+    for e in rows:
+        k = kernel_kind(e.key)
+        kinds[k] = kinds.get(k, 0.0) + e.self_device_time_total / 1e3 / per
+    return {"rows": rows, "per": per, "kinds": kinds,
+            "busy_ms": sum(e.self_device_time_total for e in rows) / 1e3 / per,
+            "launches": sum(e.count for e in rows) / per}
+
+
+def print_kernels(summary: dict, top: int) -> None:
+    """The ms by kind and the ``top`` kernels, each with its share of the
+    summed kernel time."""
+    busy, per = max(summary["busy_ms"], 1e-9), summary["per"]
+    for k, ms in sorted(summary["kinds"].items(), key=lambda kv: -kv[1]):
+        print(f"  {k:24s} {ms:9.3f} ms {100 * ms / busy:5.1f}%")
+    for e in summary["rows"][:top]:
+        ms = e.self_device_time_total / 1e3 / per
+        print(f"  {ms:9.3f} ms {100 * ms / busy:5.1f}%  "
+              f"x{e.count // per:<6d} {e.key[:100]}")
 
 
 def sleep_cycles_per_ms():

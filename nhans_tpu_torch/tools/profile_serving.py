@@ -6,28 +6,24 @@
 serves a seeded utterance once to warm up (the contexts are then cached,
 as in steady serving), then once under ``torch.profiler``, and prints the
 tower's FLOPs per window (``FlopCounterMode``, conv + matmul), the rate
-the call achieves, the summed kernel time against the wall time, and the
-kernels with the most device time, beside the card's name and power
-limit.  It asserts nothing; ``chip_smoke.py`` checks the outputs.
+the call achieves, the summed kernel time against the wall time, the
+device time by kind of kernel and the kernels with the most, beside the
+card's name and power limit.  It asserts nothing; ``chip_smoke.py`` checks the outputs.
 """
 
 from __future__ import annotations
 
 import argparse
-import subprocess
 import time
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 from torch.utils.flop_counter import FlopCounterMode
 
 from nhans_tpu_torch.cli._app import load_enhancer
 from nhans_tpu_torch.config import Config
-
-# CUPTI reports its own buffer handling as rows of device time
-_CUPTI_ROWS = ("Command Buffer Full", "Buffer Flush", "Activity Buffer Request")
+from nhans_tpu_torch.tools.devtime import card, kernel_summary, print_kernels
 
 
 def main(argv=None) -> None:
@@ -38,10 +34,7 @@ def main(argv=None) -> None:
     p.add_argument("--top", type=int, default=10)
     args = p.parse_args(argv)
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = card()
     enh = load_enhancer(Config.denoiser(), args.checkpoint, device="cuda")
     sr = enh.cfg.audio.sample_rate
     rng = np.random.default_rng(args.seed)
@@ -68,21 +61,13 @@ def main(argv=None) -> None:
         enh.enhance(mixed, pos, neg)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # kernels only: operator rows repeat their kernels' time
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.key not in _CUPTI_ROWS
-            and e.self_device_time_total > 0]
-    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    busy = sum(e.self_device_time_total for e in rows) / 1e3  # us -> ms
+    s = kernel_summary(prof)
     print(f"one warm {args.seconds:g} s call: tower {per_window / 1e9:.3f} "
           f"GFLOP per window x {windows} windows in {wall:.3f} s = "
           f"{per_window * windows / wall / 1e12:.2f} TFLOP/s; summed kernel "
-          f"time {busy:.1f} ms against {1e3 * wall:.1f} ms wall under the "
-          f"profiler, {sum(e.count for e in rows)} kernel launches, on {smi}")
-    for e in rows[:args.top]:
-        ms = e.self_device_time_total / 1e3
-        print(f"  {ms:9.3f} ms {100 * ms / max(busy, 1e-9):5.1f}%  "
-              f"x{e.count:<6d} {e.key[:100]}")
+          f"time {s['busy_ms']:.1f} ms against {1e3 * wall:.1f} ms wall under "
+          f"the profiler, {s['launches']:.0f} kernel launches, on {smi}")
+    print_kernels(s, args.top)
 
 
 if __name__ == "__main__":

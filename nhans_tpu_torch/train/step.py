@@ -1,0 +1,167 @@
+"""The training step: the batch built on the device, forward, loss,
+backward, optimizer update and the BatchNorm population statistics; the
+port of ``nhans_tpu/train/step.py``.
+
+The state's ``params`` and ``batch_stats`` are the model's own parameter
+and buffer tensors, keyed by ``state_dict`` name (the flax names with
+``.`` for ``/``); a step updates them in place.  TF32 is off while the
+step launches its work, and the process's settings come back after.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from nhans_tpu_torch.config import Config
+from nhans_tpu_torch.data.pipeline import make_train_batch
+from nhans_tpu_torch.models import init_variables
+from nhans_tpu_torch.nn.model import NHANSNet, freq_weighted_mse
+from nhans_tpu_torch.train.optim import (Optimizer, make_optimizer,
+                                         make_schedule)
+from nhans_tpu_torch.utils.device import full_float32
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int
+    params: Dict[str, torch.Tensor]
+    batch_stats: Dict[str, torch.Tensor]
+    opt_state: Any
+
+
+def make_tx(cfg: Config) -> Optimizer:
+    t = cfg.train
+    lr = make_schedule(t.lr, t.lr_schedule, t.lr_decay_steps, t.lr_min_frac)
+    return make_optimizer(t.alg, lr, t.mom)
+
+
+def state_of(model: NHANSNet, tx: Optimizer, step: int = 0) -> TrainState:
+    """A fresh state (optimizer initialised) over ``model``'s tensors."""
+    params = dict(model.named_parameters())
+    return TrainState(step=step, params=params,
+                      batch_stats=dict(model.named_buffers()),
+                      opt_state=tx.init({k: p.detach()
+                                         for k, p in params.items()}))
+
+
+def create_state(cfg: Config, generator: torch.Generator, device="cuda"
+                 ) -> Tuple[NHANSNet, TrainState, Optimizer]:
+    """(model, state, optimizer) with the seeded init of
+    ``models.init_variables``, on the card unless the caller asks for
+    ``cpu``."""
+    model = init_variables(cfg, generator, device)
+    tx = make_tx(cfg)
+    return model, state_of(model, tx), tx
+
+
+def param_counts(state: TrainState) -> Tuple[int, int]:
+    """(trainable, non-trainable) element counts."""
+    count = lambda d: sum(int(np.prod(v.shape)) for v in d.values())  # noqa: E731
+    return count(state.params), count(state.batch_stats)
+
+
+def train_loss(cfg: Config, model: NHANSNet, ex: Dict[str, torch.Tensor],
+               embed_noise=None) -> torch.Tensor:
+    """The frequency-weighted MSE of the denoised central frames, with the
+    near-clean windows upweighted under ``clean_loss_boost``."""
+    W = cfg.model.window_frames
+    res = model(ex["mixed"], ex["ctx_a"], ex["ctx_b"], embed_noise=embed_noise)
+    center = ex["mixed"][:, W // 2, :]
+    loss, ex_loss = freq_weighted_mse(center + res, ex["target"])
+    boost = cfg.train.clean_loss_boost
+    if boost > 0.0:
+        # a window whose central frame is already near the target weighs
+        # 1 + boost * sigmoid((dist - d) / scale), normalised to mean 1
+        d = torch.mean(torch.abs(center - ex["target"]), dim=-1)
+        wts = 1.0 + boost * torch.sigmoid(
+            (cfg.train.clean_loss_dist - d) / cfg.train.clean_loss_scale)
+        wts = wts / torch.mean(wts)
+        loss = torch.mean(ex_loss * wts)
+    return loss
+
+
+def make_train_step(cfg: Config, model: NHANSNet, tx: Optimizer,
+                    banked: bool = False):
+    """The step function.
+
+    ``step(state, batch, generator) -> metrics``, where ``batch`` holds
+    the waveform buffers clean/noise_a/noise_b [B, L] (int16 or float32),
+    their lengths clean_len/len_a/len_b [B] and optionally whole-file
+    peaks [B, 3], on the model's device.  With ``banked=True`` it is
+    ``step(state, banks, idx, generator)``: ``banks`` are the
+    ``DeviceBanks`` tensors and ``idx`` the index triples
+    clean_idx/a_idx/b_idx [B], and the rows are gathered on the device.
+
+    ``generator`` gives every random draw of the step (the batch's, then
+    the context-embedding jitter's); ``draws`` may supply the batch's
+    instead (``data.pipeline.draw_train_batch``).  The state is updated
+    in place; ``metrics`` holds the loss and the global gradient norm as
+    0-d device tensors, so that nothing synchronises the host."""
+    noise = cfg.model.ctx_embed_noise > 0.0
+
+    def core(state: TrainState, batch: Dict[str, torch.Tensor],
+             generator: torch.Generator, draws=None
+             ) -> Dict[str, torch.Tensor]:
+        with full_float32():
+            ex = make_train_batch(cfg, batch["clean"], batch["noise_a"],
+                                  batch["noise_b"], batch["clean_len"],
+                                  batch["len_a"], batch["len_b"],
+                                  peaks=batch.get("peaks"), draws=draws,
+                                  generator=generator)
+            model.train()
+            for p in state.params.values():
+                p.grad = None
+            loss = train_loss(cfg, model, ex,
+                              generator if noise else None)
+            loss.backward()
+            with torch.no_grad():
+                grads = {k: (p.grad if p.grad is not None
+                             else torch.zeros_like(p))
+                         for k, p in state.params.items()}
+                gnorm = torch.sqrt(sum(torch.sum(g * g)
+                                       for g in grads.values()))
+                updates, state.opt_state = tx.update(grads, state.opt_state)
+                for k, p in state.params.items():
+                    p.add_(updates[k])
+                    p.grad = None
+        state.step += 1
+        return {"loss": loss.detach(), "grad_norm": gnorm}
+
+    if not banked:
+        return core
+
+    def banked_step(state: TrainState, banks: Dict[str, torch.Tensor],
+                    idx: Dict[str, torch.Tensor],
+                    generator: torch.Generator, draws=None
+                    ) -> Dict[str, torch.Tensor]:
+        dev = banks["speech"].device
+        ci, ai, bi = (idx[k].to(dev, torch.int64)
+                      for k in ("clean_idx", "a_idx", "b_idx"))
+        batch = {
+            "clean": banks["speech"].index_select(0, ci),
+            "noise_a": banks["noise"].index_select(0, ai),
+            "noise_b": banks["noise"].index_select(0, bi),
+            "clean_len": banks["speech_len"].index_select(0, ci),
+            "len_a": banks["noise_len"].index_select(0, ai),
+            "len_b": banks["noise_len"].index_select(0, bi),
+            "peaks": torch.stack(
+                [banks["speech_peak"].index_select(0, ci),
+                 banks["noise_peak"].index_select(0, ai),
+                 banks["noise_peak"].index_select(0, bi)], dim=1),
+        }
+        return core(state, batch, generator, draws)
+
+    return banked_step
+
+
+def step_generator(seed: int, step: int) -> torch.Generator:
+    """The CPU generator of training step ``step``: a pure function of
+    (seed, step), so that a resumed run replays an uninterrupted one."""
+    g = torch.Generator()
+    g.manual_seed(int(np.random.SeedSequence([seed, step])
+                      .generate_state(1, np.uint64)[0] >> 1))
+    return g

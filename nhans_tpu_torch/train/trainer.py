@@ -1,0 +1,192 @@
+"""The trainer, the port of ``nhans_tpu/train/trainer.py``.
+
+* The step's random draws come from a generator that is a pure function
+  of (seed + 17, step), and the banked index stream is step-indexed, so a
+  run resumed from a checkpoint replays an uninterrupted one.
+* Auto-resume: when ``checkpoint_dir`` already holds steps, training
+  continues from the latest; ``--restore_path`` takes a step directory
+  (full state) or a flat ``.npz`` (variables only: fresh optimizer,
+  step 0).
+* Loss and gradient norm stay on the device until a monitor boundary.
+  On a card each step is also timed by a pair of CUDA events, from
+  before its batch is fetched to after its last kernel, so by the
+  device's clock with the input wait included; the metrics record holds
+  the mean over the monitor window as ``step_device_ms``.
+* Checkpoints are saved every ``eval_every`` steps and at the end.  The
+  evaluation pass itself is not ported yet (ROADMAP.md, Queue 1): with
+  ``eval_utts=0`` a save does not score, and a run that would score
+  refuses to start.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import torch
+
+from nhans_tpu_torch.config import Config
+from nhans_tpu_torch.data.banks import (BankIndexLoader, DeviceBanks,
+                                        banks_enabled)
+from nhans_tpu_torch.data.loader import TrainLoader, prefetch_to_device
+from nhans_tpu_torch.train import checkpoint as ckpt
+from nhans_tpu_torch.train.metrics import MetricsWriter, Monitor
+from nhans_tpu_torch.train.step import (create_state, make_train_step,
+                                        param_counts, state_of,
+                                        step_generator)
+from nhans_tpu_torch.utils.device import resolve_device
+from nhans_tpu_torch.utils.watchdog import Heartbeat
+
+
+class EvaluationNotPorted(RuntimeError):
+    """The run would evaluate, and the evaluator is not ported yet."""
+
+
+class Trainer:
+    def __init__(self, cfg: Config, eval_utts: Optional[int] = 16,
+                 device="cuda"):
+        self.cfg = cfg
+        t = cfg.train
+        self.device = resolve_device(device)
+        self.eval_utts = eval_utts or 0
+        init = torch.Generator()
+        init.manual_seed(cfg.data.seed)
+        self.model, self.state, self.tx = create_state(cfg, init,
+                                                       self.device)
+        self.banked = banks_enabled(cfg)
+        self.step_fn = make_train_step(cfg, self.model, self.tx,
+                                       banked=self.banked)
+        self.ckpt = ckpt.Checkpointer(t.checkpoint_dir,
+                                      t.checkpoints_to_keep, t.model_name)
+        self.writer = MetricsWriter(t.summaries_dir, t.model_name)
+        self.monitor = Monitor(t.train_monitor_every, self.writer)
+        self.tstep = 0
+        # utterances a step: train_mb // slices_per_step, at least 1
+        self.batch_utts = max(t.train_mb // cfg.data.slices_per_step, 1)
+
+        trainable, non_trainable = param_counts(self.state)
+        print(f"#trainable variables: {trainable}")
+        print(f"#non-trainable variables: {non_trainable}")
+        self._restore()
+        if self.eval_utts > 0 and self._would_evaluate():
+            raise EvaluationNotPorted(
+                "this run would evaluate (--eval_utts "
+                f"{self.eval_utts}: eval_before_training="
+                f"{t.eval_before_training}, eval_after_training="
+                f"{t.eval_after_training}, eval_every={t.eval_every}, "
+                f"batches={t.batches}), and the evaluator is not ported to "
+                "nhans_tpu_torch yet (see ROADMAP.md, Queue 1); pass "
+                "--eval_utts 0 to train and save checkpoints without "
+                "scoring")
+
+    def _would_evaluate(self) -> bool:
+        t = self.cfg.train
+        return (t.eval_before_training or t.eval_after_training
+                or t.batches // t.eval_every > self.tstep // t.eval_every)
+
+    def _restore(self) -> None:
+        t = self.cfg.train
+        if t.restore_path:
+            print(f"Restoring model from {t.restore_path}")
+            variables, extra = ckpt.load(t.restore_path)
+            ckpt.load_into(self.model, variables)
+            if extra is not None:
+                self._load_train_state(extra)
+            else:
+                # variables only: fine-tune from step 0 with a fresh
+                # optimizer
+                self.state = state_of(self.model, self.tx)
+                self.tstep = 0
+                print("Restored inference variables only "
+                      "(fine-tune: fresh optimizer, step 0)")
+        elif self.ckpt.latest_step() is not None:
+            step, variables, extra = self.ckpt.restore()
+            ckpt.load_into(self.model, variables)
+            self._load_train_state(extra)
+            print(f"Auto-resumed from checkpoint step {step}")
+
+    def _load_train_state(self, extra: dict) -> None:
+        alg = str(extra["alg"])
+        if alg != self.cfg.train.alg.lower():
+            raise ValueError(f"checkpoint was trained with --alg {alg}, "
+                             f"this run asks for {self.cfg.train.alg}")
+        self.state.opt_state = ckpt.opt_state_from_flat(extra, self.device)
+        self.state.step = self.tstep = int(extra["step"])
+
+    def _beat(self, phase: str) -> None:
+        hb = getattr(self, "_heartbeat", None)
+        if hb is not None:
+            hb.beat(phase)
+
+    def save_and_eval(self) -> None:
+        print("Saving the model")
+        self._beat(f"save(step {self.tstep})")
+        path = self.ckpt.save(self.tstep, self.state, self.cfg.train.alg)
+        print(f"checkpoint written: {path}")
+        if self.eval_utts == 0:
+            print("evaluation skipped (--eval_utts 0)")
+
+    def train(self) -> None:
+        cfg, t = self.cfg, self.cfg.train
+        banks = None
+        if self.banked:
+            dbanks = DeviceBanks(cfg, self.device)
+            banks = dbanks.banks
+            print(f"device corpus banks: {len(dbanks.speech_paths)} speech"
+                  f" + {len(dbanks.noise_paths)} noise files, "
+                  f"{dbanks.nbytes >> 20} MB on {self.device}")
+            loader = BankIndexLoader(dbanks, self.batch_utts,
+                                     start_step=self.tstep)
+        else:
+            loader = TrainLoader(cfg, self.batch_utts)
+        stream = prefetch_to_device(loader, self.device)
+        timed = self.device.type == "cuda"
+
+        if t.eval_before_training:
+            self.save_and_eval()
+
+        # (metrics, input wait, step events): read at monitor boundaries
+        pending = []
+        self._heartbeat = Heartbeat(name="trainer").start()
+        try:
+            while self.tstep < t.batches:
+                self._beat(f"train step {self.tstep}")
+                events = None
+                if timed:
+                    events = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                    events[0].record(torch.cuda.current_stream(self.device))
+                t_in = time.perf_counter()
+                batch = next(stream)
+                input_wait = time.perf_counter() - t_in
+                gen = step_generator(cfg.data.seed + 17, self.tstep)
+                if self.banked:
+                    metrics = self.step_fn(self.state, banks, batch, gen)
+                else:
+                    metrics = self.step_fn(self.state, batch, gen)
+                if timed:
+                    events[1].record(torch.cuda.current_stream(self.device))
+                self.tstep += 1
+                pending.append((metrics, input_wait, events))
+                if self.tstep % t.train_monitor_every == 0:
+                    if timed:
+                        pending[-1][2][1].synchronize()
+                    first = self.tstep - len(pending) + 1
+                    for i, (m, iw, ev) in enumerate(pending):
+                        values = {"loss": float(m["loss"]),
+                                  "grad_norm": float(m["grad_norm"])}
+                        if ev is not None:
+                            values["step_device_ms"] = ev[0].elapsed_time(
+                                ev[1])
+                        self.monitor.update(first + i, values, iw)
+                    pending = []
+                if self.tstep % t.eval_every == 0:
+                    self.save_and_eval()
+            if t.eval_after_training:
+                self.save_and_eval()
+        finally:
+            self._beat("shutdown")
+            stream.close()
+            loader.close()
+            self.writer.close()
+            self._heartbeat.stop()

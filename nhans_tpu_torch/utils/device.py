@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -16,3 +18,32 @@ def resolve_device(device="cuda") -> torch.device:
             "is False; pass device='cpu' (CLI: --device cpu) to run the "
             "plain PyTorch path on the CPU")
     return dev
+
+
+def to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """``t`` on ``device``.  A CPU tensor bound for a card is copied
+    through pinned memory without blocking: a copy from pageable memory
+    first waits for all the work queued on the stream, which would empty
+    the card's queue in the middle of a train step."""
+    device = torch.device(device)
+    if t.device.type == "cpu" and device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+@contextlib.contextmanager
+def full_float32():
+    """TF32 off in cuDNN and in matmuls while serving or a train step
+    launches its device work, and the process's settings back afterwards.
+    The JAX reference takes its convolutions and DFTs in full float32
+    (Precision.HIGHEST); cuDNN runs float32 convolutions in TF32 by
+    default, which keeps about three decimal digits.  The flags are read
+    when a kernel is launched, so work still running afterwards keeps
+    them."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved

@@ -16,7 +16,6 @@ from __future__ import annotations
 import os
 import numpy as np
 from scipy.io import wavfile
-from scipy.signal import resample_poly
 
 
 def read_wav_strict(path: str, fs: int = 16000) -> np.ndarray:
@@ -52,6 +51,9 @@ def read_wav_any(path: str, fs: int = 16000) -> np.ndarray:
         x = x.mean(axis=1)
     if rate != fs:
         g = np.gcd(int(rate), int(fs))
+        # imported here: scipy.signal takes seconds to import, and only
+        # a file at another rate needs it
+        from scipy.signal import resample_poly
         x = resample_poly(x, fs // g, rate // g).astype(np.float32)
     return np.clip(np.round(x * 32767.0), -32768, 32767).astype(np.int16)
 

@@ -1,22 +1,33 @@
-"""Golden serving output of the JAX package, for holding the PyTorch port
-to it where JAX is not installed (the machine with the GPU).
+"""Golden outputs of the JAX package, for holding the PyTorch port to
+them where JAX is not installed (the machine with the GPU).
 
-    python tests/make_torch_golden.py
+    python tests/make_torch_golden.py          # serving
+    python tests/make_torch_golden.py train    # one training step
 
-runs ``nhans_tpu``'s ``Enhancer(out_wire="float32")`` with the shipped
-``docs/quality/denoiser_q5_swa.npz`` on a seeded 1.5 s input and writes
-``tests/data/torch_golden_denoiser.npz``: the seed, a digest of the
+The first runs ``nhans_tpu``'s ``Enhancer(out_wire="float32")`` with the
+shipped ``docs/quality/denoiser_q5_swa.npz`` on a seeded 1.5 s input and
+writes ``tests/data/torch_golden_denoiser.npz``: the seed, a digest of the
 regenerated inputs, ``denoised``, ``mixed_processed``, ``snr_est`` and
 ``cap_clip_frac``.  ``tests/test_torch_golden.py`` checks that the JAX
 package still reproduces the file and that the port does too;
 ``chip_smoke.py`` checks the port on the card against it.
 
-The helpers here (``golden_inputs``, ``jax_variables``) are shared by the
-port's tests.  ``golden_inputs`` needs numpy only.
+The second takes one full-width sgd step of the JAX package's train step
+from the same weights on one seeded utterance x 2 crops and writes
+``tests/data/torch_golden_train.npz``: the inputs' digest, the step's
+random draws, the loss, the gradient norm, the update of a few layers
+(``delta/<flax path>``) and two BatchNorms' new statistics
+(``stats/<flax path>``).  ``tests/test_torch_train_golden.py`` and
+``chip_smoke.py`` hold the port to it.
+
+The helpers here (``golden_inputs``, ``jax_variables``, ``twin_configs``,
+``jax_train_draws``) are shared by the port's tests.  ``golden_inputs``
+needs numpy only.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import os
 import sys
@@ -25,6 +36,7 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(REPO, "tests", "data", "torch_golden_denoiser.npz")
+GOLDEN_TRAIN = os.path.join(REPO, "tests", "data", "torch_golden_train.npz")
 DENOISER_NPZ = os.path.join(REPO, "docs", "quality", "denoiser_q5_swa.npz")
 SEPARATOR_NPZ = os.path.join(REPO, "docs", "quality", "separator_q5_swa.npz")
 SEED = 20240
@@ -52,6 +64,41 @@ def golden_inputs(seed: int = SEED):
     return mixed, pos, neg
 
 
+# the training golden: one utterance of 261 frames, 2 crops, sgd
+TRAIN_SEED = 20250
+TRAIN_SLICES = 2
+TRAIN_LR = 1e-3
+TRAIN_LAYERS = ("embedding/block1/conv1/w", "resblock1/conv1/w",
+                "resblock8/bn_out/beta", "last_dense/b")
+TRAIN_STATS = ("embedding/block1/bn1", "last_bn")
+
+
+def golden_train_inputs(seed: int = TRAIN_SEED) -> dict:
+    """One training batch of raw int16 buffers (B = 1), as the loaders
+    deliver them: a 2.6 s harmonic utterance, a positive noise shorter
+    than it and a louder negative noise longer than it, with the valid
+    lengths and whole-file peaks."""
+    rng = np.random.default_rng(seed)
+    L = 400 + 160 * 260
+    t = np.arange(L) / 16000.0
+    f0 = 160.0 + 30.0 * np.sin(2 * np.pi * 0.9 * t)
+    phase = 2 * np.pi * np.cumsum(f0) / 16000.0
+    voice = sum(np.sin(h * phase) / h for h in range(1, 7))
+    clean = 7000.0 * voice + rng.standard_normal(L) * 400.0
+    noise_a = np.zeros(L)
+    noise_a[:23000] = rng.standard_normal(23000) * 1500.0
+    noise_b = rng.standard_normal(L) * 3000.0
+    batch = {k: np.rint(v)[None].astype(np.int16) for k, v in
+             (("clean", clean), ("noise_a", noise_a), ("noise_b", noise_b))}
+    batch.update(clean_len=np.array([L], np.int32),
+                 len_a=np.array([23000], np.int32),
+                 len_b=np.array([L], np.int32))
+    batch["peaks"] = np.stack(
+        [np.abs(batch[k]).max(1) for k in ("clean", "noise_a", "noise_b")],
+        axis=1).astype(np.float32)
+    return batch
+
+
 def input_digest(*arrays) -> str:
     h = hashlib.sha256()
     for a in arrays:
@@ -73,6 +120,50 @@ def jax_variables(npz_path: str) -> dict:
     return tree
 
 
+def twin_configs(task: str = "denoiser", **sections):
+    """(JAX package Config, port Config) of ``task`` with the same fields
+    replaced in each section, e.g. ``model=dict(window_frames=9)``."""
+    import dataclasses
+
+    from nhans_tpu.config import Config as JConfig
+    from nhans_tpu_torch.config import Config as TConfig
+
+    out = []
+    for cls in (JConfig, TConfig):
+        cfg = getattr(cls, task)()
+        cfg = cfg.replace(**{name: dataclasses.replace(getattr(cfg, name),
+                                                       **fields)
+                             for name, fields in sections.items()})
+        out.append(cfg)
+    return tuple(out)
+
+
+def jax_train_draws(cfg, key, batch: int, slices: int) -> dict:
+    """The random draws that ``nhans_tpu.data.pipeline.make_train_batch``
+    takes from ``key``, replayed with its ``jax.random`` splits, as numpy
+    arrays under the names of the port's ``draw_train_batch``."""
+    import jax
+    import jax.numpy as jnp
+
+    B, K = batch, slices
+    (k_snr_a, k_snr_b, k_win, k_ctx_a, k_ctx_b,
+     k_aug_a, k_aug_b) = jax.random.split(key, 7)
+    n = len(cfg.task.snr_set) + (3 if cfg.data.snr_augment else 0)
+    draws = {"snr_a": jax.random.randint(k_snr_a, (B,), 0, n),
+             "snr_b": jax.random.randint(k_snr_b, (B,), 0, n),
+             "u_win": jax.random.uniform(k_win, (B, K)),
+             "u_ctx_a": jax.random.uniform(k_ctx_a, (B, K)),
+             "u_ctx_b": jax.random.uniform(k_ctx_b, (B, K))}
+    if cfg.data.augment_noise and cfg.task.two_noise_mixing:
+        for s, kk in (("a", k_aug_a), ("b", k_aug_b)):
+            ks, kr, kp = jax.random.split(kk, 3)
+            draws[f"shift_{s}"] = jax.random.randint(ks, (B,), 0, 1 << 30)
+            draws[f"rev_{s}"] = jax.random.bernoulli(kr, shape=(B,))
+            draws[f"sign_{s}"] = jnp.where(
+                jax.random.bernoulli(kp, shape=(B,)), 1.0, -1.0)
+    return {k: np.asarray(v) for k, v in draws.items()}
+
+
 def jax_golden_run() -> dict:
     """The JAX package's output on the golden inputs (CPU)."""
     from nhans_tpu.config import Config
@@ -83,9 +174,103 @@ def jax_golden_run() -> dict:
     return enh.enhance(*golden_inputs())
 
 
+def jax_train_golden() -> dict:
+    """One sgd step of the JAX package at full width (CPU) from the
+    shipped denoiser weights on ``golden_train_inputs``."""
+    import jax
+    import jax.numpy as jnp
+
+    from nhans_tpu.models import build_model
+    from nhans_tpu.train.optim import make_optimizer
+    from nhans_tpu.train.step import TrainState, make_train_step
+
+    jcfg, _ = twin_configs("denoiser",
+                           data=dict(slices_per_step=TRAIN_SLICES),
+                           train=dict(alg="sgd", lr=TRAIN_LR))
+    variables = jax_variables(DENOISER_NPZ)
+    tx = make_optimizer("sgd", TRAIN_LR)
+    state = TrainState(step=jnp.zeros((), jnp.int32),
+                       params=variables["params"],
+                       batch_stats=variables["batch_stats"],
+                       opt_state=tx.init(variables["params"]))
+    step = make_train_step(jcfg, build_model(jcfg), tx, donate=False)
+    batch = golden_train_inputs()
+    key = jax.random.PRNGKey(TRAIN_SEED)
+    new, metrics = step(state, {k: jnp.asarray(v) for k, v in batch.items()},
+                        key)
+
+    def at(tree, path):
+        for p in path.split("/"):
+            tree = tree[p]
+        return np.asarray(tree, np.float32)
+
+    out = {"seed": np.int64(TRAIN_SEED),
+           "input_sha256": np.array(input_digest(*batch.values())),
+           "loss": np.float32(metrics["loss"]),
+           "grad_norm": np.float32(metrics["grad_norm"])}
+    for k, v in jax_train_draws(jcfg, key, 1, TRAIN_SLICES).items():
+        out[f"draws/{k}"] = v
+    for path in TRAIN_LAYERS:
+        out[f"delta/{path}"] = (at(new.params, path)
+                                - at(variables["params"], path))
+    for path in TRAIN_STATS:
+        for name in ("pop_mean", "pop_variance"):
+            out[f"stats/{path}/{name}"] = at(new.batch_stats,
+                                             f"{path}/{name}")
+    return out
+
+
+def port_train_golden(device="cpu", golden=None) -> dict:
+    """The port's train step on the training golden's inputs and draws,
+    from the same weights, on ``device``: the file's keys, computed by the
+    port.  Needs torch only."""
+    import torch
+
+    from nhans_tpu_torch.compat.weights import load_npz, to_flax
+    from nhans_tpu_torch.config import Config
+    from nhans_tpu_torch.models import build_model
+    from nhans_tpu_torch.train.step import (make_train_step, make_tx,
+                                            state_of)
+
+    if golden is None:
+        with np.load(GOLDEN_TRAIN) as z:
+            golden = {k: z[k] for k in z.files}
+    cfg = Config.denoiser()
+    cfg = cfg.replace(
+        data=dataclasses.replace(cfg.data, slices_per_step=TRAIN_SLICES),
+        train=dataclasses.replace(cfg.train, alg="sgd", lr=TRAIN_LR))
+    model = build_model(cfg)
+    model.load_state_dict(load_npz(DENOISER_NPZ))
+    model.to(device)
+    before = to_flax(dict(model.named_parameters()), "params")
+    tx = make_tx(cfg)
+    state = state_of(model, tx)
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in golden_train_inputs().items()}
+    draws = {k[len("draws/"):]: torch.from_numpy(np.array(v))
+             for k, v in golden.items() if k.startswith("draws/")}
+    metrics = make_train_step(cfg, model, tx)(state, batch, None,
+                                              draws=draws)
+    after = to_flax(dict(model.named_parameters()), "params")
+    stats = to_flax(dict(model.named_buffers()), "stats")
+    out = {"loss": float(metrics["loss"]),
+           "grad_norm": float(metrics["grad_norm"])}
+    for path in TRAIN_LAYERS:
+        out[f"delta/{path}"] = after[f"params/{path}"] - before[
+            f"params/{path}"]
+    for path in TRAIN_STATS:
+        for name in ("pop_mean", "pop_variance"):
+            out[f"stats/{path}/{name}"] = stats[f"stats/{path}/{name}"]
+    return out
+
+
 def main() -> None:
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     sys.path.insert(0, REPO)
+    if sys.argv[1:] == ["train"]:
+        np.savez_compressed(GOLDEN_TRAIN, **jax_train_golden())
+        print(f"wrote {GOLDEN_TRAIN} ({os.path.getsize(GOLDEN_TRAIN)} bytes)")
+        return
     out = jax_golden_run()
     os.makedirs(os.path.dirname(GOLDEN), exist_ok=True)
     np.savez_compressed(

@@ -2,8 +2,9 @@
 --device cpu) against the JAX package's Enhancer(out_wire="float32")
 followed by nhans_tpu.utils.wavio.write_wav on the same seeded wavs and
 the same shipped weights.  Output wavs within 1e-4 (absolute, float32
-wavs of peak about 1) and the printed snr_est within 1e-4 relative, the
-bars of tests/test_torch_enhance.py."""
+wavs of peak about 1; 1e-4 of the peak where a rigged head makes the
+output far louder) and the printed snr_est within 1e-4 relative, the bars
+of tests/test_torch_enhance.py."""
 
 import os
 import subprocess
@@ -13,6 +14,9 @@ import numpy as np
 import pytest
 from scipy.io import wavfile
 
+import dataclasses
+
+from nhans_tpu.cli._app import demo_mix as j_demo_mix
 from nhans_tpu.config import Config as JConfig
 from nhans_tpu.infer.enhance import Enhancer as JEnhancer
 from nhans_tpu.utils import wavio as jwavio
@@ -67,7 +71,6 @@ def test_help_has_reference_flags(task):
 
 
 @pytest.mark.parametrize("args,env,needle", [
-    (["--demo"], {}, "ROADMAP"),
     ([], {"NHANS_FREQ_PAD": "256"}, "NHANS_FREQ_PAD"),
     ([], {"NHANS_FREQ_PAD": "abc"}, "NHANS_FREQ_PAD"),
     (["--checkpoint", ""], {}, "--checkpoint is required"),
@@ -151,3 +154,82 @@ def test_separator_single_file_matches_jax_in_slot_order(tmp_path):
                                    ref[key].astype(np.float32),
                                    atol=WAVE_ATOL, err_msg=fname)
     assert not (tmp_path / "sep_compensated.wav").exists()
+
+
+def test_demo_mixes_first_as_jax_does(tmp_path):
+    """--demo takes --input as clean speech, mixes it with the contexts at
+    0 dB (demo_mix) and enhances the mixture."""
+    (clean,) = _seeded_wavs(tmp_path, 13, [0.55])
+    out = tmp_path / "demo.wav"
+    task, npz = "denoiser", DENOISER_NPZ
+    r = _cli(task, "--device", "cpu", "--checkpoint", npz, "--demo",
+             "--input", str(clean), "--pos", str(tmp_path / "pos.wav"),
+             "--neg", str(tmp_path / "neg.wav"), "--output", str(out))
+    assert r.returncode == 0, r.stderr
+    fs = 16000
+    x, pos, neg = (jwavio.read_for_processing(str(p), fs)
+                   for p in (clean, tmp_path / "pos.wav",
+                             tmp_path / "neg.wav"))
+    cfg = JConfig.denoiser()
+    mixed = j_demo_mix(cfg, task, x, pos, neg)
+    ref = JEnhancer(cfg, jax_variables(npz), out_wire="float32").enhance(
+        mixed, pos, neg)
+    for fname, key in (("demo.wav", "denoised"),
+                       ("demo_mixed_processed.wav", "mixed_processed"),
+                       ("demo_removed.wav", "removed")):
+        np.testing.assert_allclose(_read(tmp_path / fname),
+                                   ref[key].astype(np.float32),
+                                   atol=WAVE_ATOL, err_msg=fname)
+
+
+def test_freq_pad_up_to_the_bins_serves_natively(tmp_path):
+    """NHANS_FREQ_PAD up to 201 selects nothing in the JAX package, so
+    the port serves as it does without it: within 1e-4 (the CPU
+    convolutions' threading moves a run by about 2e-7; a padded tower
+    geometry would move it by far more)."""
+    (mixed,) = _seeded_wavs(tmp_path, 14, [0.5])
+    outs = {}
+    for pad in ("", "128"):
+        out = tmp_path / f"out{pad or 'plain'}.wav"
+        r = _cli("denoiser", "--device", "cpu", "--checkpoint", DENOISER_NPZ,
+                 "--input", str(mixed), "--neg", str(tmp_path / "neg.wav"),
+                 "--output", str(out), env={"NHANS_FREQ_PAD": pad})
+        assert r.returncode == 0, r.stderr
+        outs[pad] = _read(out)
+    np.testing.assert_allclose(outs["128"], outs[""], atol=WAVE_ATOL)
+
+
+def test_recon_residual_cap_zero_is_honoured(tmp_path):
+    """The head's bias is rigged to predict +12 nats at bin 0, the
+    low-bin blowup the cap bounds: with --recon_residual_cap 0 the port's
+    command line gives the JAX Enhancer built with recon_residual_cap=0.0
+    (the JAX command line drops the flag).  The output peaks at more than
+    100 times the mixture's, far beyond the e^2 gain the default cap of 2
+    nats allows: the cap would have bitten."""
+    with np.load(DENOISER_NPZ) as z:
+        flat = {k: z[k] for k in z.files}
+    b = flat["params/last_dense/b"].astype(np.float32)
+    b[0] = 12.0
+    flat["params/last_dense/b"] = b
+    rigged = str(tmp_path / "rigged.npz")
+    np.savez(rigged, **flat)
+    (mixed,) = _seeded_wavs(tmp_path, 15, [0.5])
+    out = tmp_path / "uncapped.wav"
+    r = _cli("denoiser", "--device", "cpu", "--checkpoint", rigged,
+             "--recon_residual_cap", "0", "--input", str(mixed),
+             "--neg", str(tmp_path / "neg.wav"), "--output", str(out))
+    assert r.returncode == 0, r.stderr
+    fs = 16000
+    x = jwavio.read_for_processing(str(mixed), fs)
+    neg = jwavio.read_for_processing(str(tmp_path / "neg.wav"), fs)
+    pos = np.zeros(fs)
+    cfg = JConfig.denoiser()
+    uncapped_cfg = cfg.replace(audio=dataclasses.replace(
+        cfg.audio, recon_residual_cap=0.0))
+    ref = JEnhancer(uncapped_cfg, jax_variables(rigged),
+                    out_wire="float32").enhance(x, pos, neg)
+    want = ref["denoised"]
+    assert np.abs(want).max() > 100 * np.abs(ref["mixed_processed"]).max()
+    got = _read(out)
+    np.testing.assert_allclose(got, want.astype(np.float32),
+                               atol=WAVE_ATOL * np.abs(want).max())

@@ -35,11 +35,14 @@ def test_every_module_imports_with_jax_blocked():
     r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    # config, 9 subpackages, dsp/spectral, ops/{_build,stft_cuda},
-    # nn/{blocks,model}, compat/weights, infer/enhance,
-    # utils/{device,wavio}, cli/{_app,denoiser,separator},
-    # tools/{devtime,profile_serving,spectrogram_anatomy}
-    assert int(r.stdout.strip()) == 25
+    # config, 11 subpackages, dsp/{spectral,mixing},
+    # ops/{_build,stft_cuda}, nn/{blocks,model}, compat/weights,
+    # infer/enhance, utils/{device,wavio,tb_events,watchdog},
+    # cli/{_app,denoiser,separator,train,seeds},
+    # data/{manifest,banks,loader,pipeline},
+    # train/{optim,step,checkpoint,metrics,trainer},
+    # tools/{devtime,profile_serving,profile_training,spectrogram_anatomy}
+    assert int(r.stdout.strip()) == 42
 
 
 @pytest.mark.parametrize("path", PORT_SOURCES)
