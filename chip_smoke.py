@@ -18,7 +18,15 @@ drives the port's two main paths at full width:
   on a seeded synthetic corpus in a temporary directory: the denoiser on
   the corpus banked on the card and streamed from the host, the separator
   banked, a checkpoint and an auto-resume that replays the uninterrupted
-  run; step time by CUDA events, FLOPs per step, peak memory.
+  run; step time by CUDA events, FLOPs per step, peak memory;
+* evaluation: the Evaluator against the JAX package's golden pass
+  (tests/data/torch_golden_eval.npz), the shipped denoiser and separator
+  scoring the corpus's 8 valid utterances in one group at [8, 256000]
+  with the kernel and with the plain spectrogram (card time by CUDA
+  events, host scoring time, TFLOP/s, peak memory), the trainer's
+  synchronous and asynchronous scoring of a checkpoint, and
+  ``nhans_tpu_torch.cli.evaluate`` and ``tools/eval_checkpoints``
+  rescoring it.
 
 Any failed check raises, and the script exits non-zero without its result
 line.  Without a CUDA card, or without the rest of the repository, it
@@ -30,6 +38,7 @@ them, one JSON object with the kernel's numbers on each path, and
 The script writes nothing into the repository apart from build/.
 """
 
+import dataclasses
 import json
 import os
 import re
@@ -80,6 +89,10 @@ TRAIN_DELTA_RTOL = 1e-3
 # the loss of the first step after an auto-resume against the
 # uninterrupted run's (cuDNN's backward sums in another order each run)
 RESUME_RTOL = 1e-4
+# evaluation metrics (loss, dB, STOI, ESTOI, PESQ, counts) on the card
+# against the plain spectrogram, the JAX package's golden pass (CPU), the
+# trainer's other pass and cli.evaluate: |diff| <= SNR_RTOL x max(|value|,
+# 1); reconstructions within WAVE_ATOL
 
 SR = 16000
 
@@ -102,28 +115,39 @@ def utterance(rng, seconds, f0):
 
 
 def write_corpus(root, rng):
-    """A seeded int16 corpus under root with train/valid/test manifests:
-    8 speech utterances of 4 to 10.2 s by 4 speakers and 6 noises of 3 to
-    12 s.  Returns (speech_dir, noise_dir)."""
+    """A seeded int16 corpus under root with train/valid/test manifests.
+    Train: 8 speech utterances of 4 to 10.2 s by 4 speakers and 6 noises
+    of 3 to 12 s.  Valid (written after train, so the train split does not
+    depend on it): 8 speech utterances of 5.2 to 10.225 s by 4 other
+    speakers, one group of the evaluator on its 16 s bucket, and 6 noises
+    of 6 to 12 s.  Returns (speech_dir, noise_dir)."""
     from scipy.io import wavfile
 
     from nhans_tpu_torch.data.manifest import create_seeds
 
-    dirs = []
-    for kind, seconds in (("speech", (10.225, 9.1, 7.3, 10.0, 4.2, 8.8,
-                                      10.225, 6.0)),
-                          ("noise", (12.0, 3.0, 10.225, 5.5, 9.0, 7.7))):
-        base = os.path.join(root, kind)
+    splits = (
+        ("train", (("speech", (10.225, 9.1, 7.3, 10.0, 4.2, 8.8, 10.225,
+                               6.0)),
+                   ("noise", (12.0, 3.0, 10.225, 5.5, 9.0, 7.7)))),
+        ("valid", (("speech", (10.225, 8.4, 6.1, 9.7, 10.225, 5.2, 7.9,
+                               9.3)),
+                   ("noise", (12.0, 6.0, 10.225, 8.5, 11.0, 7.2)))))
+    for kind in ("speech", "noise"):
         for split in ("train", "valid", "test"):
-            os.makedirs(os.path.join(base, split))
-        for i, sec in enumerate(seconds):
-            x = (utterance(rng, sec, 120 + 25 * i) if kind == "speech"
-                 else rng.standard_normal(int(sec * SR)) * (800 + 300 * i))
-            wavfile.write(os.path.join(base, "train", f"spk{i % 4}_{i}.wav"),
-                          SR, np.clip(np.rint(x), -32768, 32767)
-                          .astype(np.int16))
-        create_seeds(base)
-        dirs.append(base + "/")
+            os.makedirs(os.path.join(root, kind, split))
+    for split, kinds in splits:
+        for kind, seconds in kinds:
+            for i, sec in enumerate(seconds):
+                x = (utterance(rng, sec, 120 + 25 * i) if kind == "speech"
+                     else rng.standard_normal(int(sec * SR)) * (800 + 300 * i))
+                spk = i % 4 + (4 if split == "valid" else 0)
+                wavfile.write(
+                    os.path.join(root, kind, split, f"spk{spk}_{i}.wav"), SR,
+                    np.clip(np.rint(x), -32768, 32767).astype(np.int16))
+    dirs = []
+    for kind in ("speech", "noise"):
+        create_seeds(os.path.join(root, kind))
+        dirs.append(os.path.join(root, kind) + "/")
     return dirs
 
 
@@ -154,6 +178,66 @@ def compare(got, ref, what, keys=("denoised", "mixed_processed", "removed")):
         + f"; snr_est rel diff {rel:.3g}")
 
 
+def compare_metrics(got, want, what):
+    """Metrics (numbers, or arrays of per-utterance numbers) at the
+    evaluation bar."""
+    check(set(got) == set(want), f"{what}: metric keys {sorted(got)} != "
+          f"{sorted(want)}")
+    diffs = {}
+    for k in want:
+        g, w = (np.asarray(x, np.float64) for x in (got[k], want[k]))
+        check(g.shape == w.shape, f"{what} {k}: shape")
+        d = np.abs(g - w)
+        check(bool(np.all(d <= SNR_RTOL * np.maximum(np.abs(w), 1.0))),
+              f"{what} {k}: {g} against {w}")
+        diffs[k] = float(d.max())
+    say(f"  {what}: max |diff| " + ", ".join(f"{k} {v:.3g}"
+                                            for k, v in diffs.items()))
+
+
+def compare_dumps(got_dir, want_dir, what):
+    """The dumped reconstructions (and per-window losses) of two passes."""
+    names = sorted(os.listdir(want_dir))
+    check(sorted(os.listdir(got_dir)) == names, f"{what}: dumped files")
+    worst = {}
+    for name in names:
+        g = np.load(os.path.join(got_dir, name))
+        w = np.load(os.path.join(want_dir, name))
+        check(g.shape == w.shape, f"{what} {name}: shape")
+        kind = name.split("_")[-2]
+        err = float(np.abs(g - w).max()) if g.size else 0.0
+        bar = (SNR_RTOL * max(float(np.abs(w).max()), 1.0) if kind == "loss"
+               else WAVE_ATOL)
+        check(err <= bar, f"{what} {name}: max |diff| {err:.3g} > {bar:.3g}")
+        worst[kind] = max(worst.get(kind, 0.0), err)
+    say(f"  {what}: {len(names)} dumped arrays, max |diff| "
+        + ", ".join(f"{k} {v:.3g}" for k, v in sorted(worst.items())))
+
+
+def timed_groups(evaluator):
+    """Wrap the evaluator's device work per group: (card ms by CUDA events
+    from its first copy to the host to its last, host wall s) for each."""
+    import torch
+
+    forward = evaluator._forward
+    log = []
+
+    def wrapped(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = forward(*args)
+        ev[1].record()
+        ev[1].synchronize()
+        log.append((ev[0].elapsed_time(ev[1]), time.perf_counter() - t0))
+        return out
+
+    evaluator._forward = wrapped
+    return log
+
+
 def main() -> int:
     import torch
 
@@ -167,10 +251,12 @@ def main() -> int:
     from nhans_tpu_torch.dsp import spectral as sp
     from nhans_tpu_torch.ops import _build, stft_cuda
     from nhans_tpu_torch.tools.devtime import device_ms, sleep_cycles_per_ms
-    from tests.make_torch_golden import (DENOISER_NPZ, GOLDEN, GOLDEN_TRAIN,
-                                         SEPARATOR_NPZ, TRAIN_LAYERS,
-                                         TRAIN_STATS, golden_inputs,
-                                         golden_train_inputs, input_digest,
+    from tests.make_torch_golden import (DENOISER_NPZ, GOLDEN, GOLDEN_EVAL,
+                                         GOLDEN_TRAIN, SEPARATOR_NPZ,
+                                         TRAIN_LAYERS, TRAIN_STATS,
+                                         eval_digest, golden_eval_examples,
+                                         golden_inputs, golden_train_inputs,
+                                         input_digest, port_eval_golden,
                                          port_train_golden)
 
     t_start = time.perf_counter()
@@ -208,14 +294,16 @@ def main() -> int:
     # and the kernel, which sums those bins in float64, does not.  Serving:
     # contexts [8, 32240] and mixed [4, 160000]; training: [16, 163600]
     # log-only on the banked path and [16, 64000], the first length bucket,
-    # on the streaming path.
+    # on the streaming path; evaluation: [8, 256000] with re/im, a group of
+    # 8 on the 16 s bucket.
     rng = np.random.default_rng(0)
     kernel_errs = {}
     shapes = [((1, 160000), True), ((4, 160000), True), ((8, 160000), True),
               ((8, 32240), False), ((16, 32240), False),
               ((16, 163600), False), ((16, 64000), False),
               ((3, 4000 + 77), True), ((2, 400 + 160 * 20), True),
-              ((1, 400), True), ((2, 399), True), ((64, 160000), True)]
+              ((1, 400), True), ((2, 399), True), ((64, 160000), True),
+              ((8, 256000), True)]
     for shape, with_reim in shapes:
         x = torch.from_numpy(
             (rng.standard_normal(shape) * 0.3).astype(np.float32)).to(dev)
@@ -291,7 +379,8 @@ def main() -> int:
     timings = {}
     for B, L, with_reim in ((1, 160000, True), (4, 160000, True),
                             (8, 160000, True), (8, 32240, False),
-                            (16, 163600, False), (16, 64000, False)):
+                            (16, 163600, False), (16, 64000, False),
+                            (8, 256000, True)):
         x = torch.from_numpy((rng.standard_normal((B, L)) * 0.3)
                              .astype(np.float32)).to(dev)
         F = sp.num_frames(L)
@@ -541,7 +630,10 @@ def main() -> int:
                   f"{name}: {launches} kernel launches in "
                   f"{trainer.tstep - first} steps, expected 4 a step")
             with open(f"{tmp}/sum_{name}/nhans.jsonl") as f:
-                records = {r["step"]: r for r in map(json.loads, f)}
+                # monitor records; each save also wrote an all-zero
+                # evaluation record (--eval_utts 0), without a loss
+                records = {r["step"]: r for r in map(json.loads, f)
+                           if "loss" in r}
             losses = {k: r["loss"] for k, r in records.items()}
             check(all(np.isfinite(v) for v in losses.values()),
                   f"{name}: losses finite")
@@ -636,6 +728,164 @@ def main() -> int:
             + ", ".join(f"{v:.4f}" for _, v in sorted(losses.items()))
             + f"; {launches} kernel launches in 3 steps")
         del trainer
+
+        # -- 10. evaluation ------------------------------------------------------
+        from nhans_tpu_torch.cli import evaluate as cli_evaluate
+        from nhans_tpu_torch.compat.weights import load_npz
+        from nhans_tpu_torch.data.loader import EvalLoader
+        from nhans_tpu_torch.models import build_model
+        from nhans_tpu_torch.tools import eval_checkpoints
+        from nhans_tpu_torch.train.evaluate import Evaluator
+
+        # against the JAX package's evaluation of two 2.5 s utterances (CPU)
+        with np.load(GOLDEN_EVAL) as z:
+            egold = {k: z[k] for k in z.files}
+        check(str(egold["input_sha256"]) == eval_digest(
+            golden_eval_examples()), "evaluation golden inputs")
+        got = port_eval_golden("cuda")
+        compare_metrics(
+            {k: v for k, v in got.items() if not k.startswith("denoised_")},
+            {k: v for k, v in egold.items()
+             if k.startswith(("metric/", "utt/"))},
+            "[10 eval] golden (JAX package, CPU), metrics and per-utterance "
+            "scores")
+        errs = [float(np.abs(got[f"denoised_{i}"]
+                             - egold[f"denoised_{i}"]).max()) for i in range(2)]
+        check(max(errs) <= WAVE_ATOL, f"golden eval denoised: {errs}")
+        say(f"  golden eval denoised waveforms: max |diff| {max(errs):.3g}")
+
+        # full width: the corpus's 8 valid utterances, one group of 8 on the
+        # 16 s bucket ([8, 256000]), with the kernel and with the plain
+        # spectrogram
+        nwin = 8 * (sp.num_frames(256000) - 200)
+
+        def full_width(task, npz):
+            base = getattr(Config, task)()
+            cfg = base.replace(data=dataclasses.replace(
+                base.data, speech_wav_dir=corpus[0],
+                noise_wav_dir=corpus[1]))
+            model = build_model(cfg)
+            model.load_state_dict(load_npz(npz))
+            evaluator = Evaluator(cfg, model.to(dev))
+            examples = list(EvalLoader(cfg))
+            check(len(examples) == 8, f"{task}: 8 valid utterances")
+            # FLOPs of the group: every window of the bucket and 16
+            # contexts, counted by torch on the card
+            with torch.inference_mode():
+                ctx = torch.zeros(1, 200, 201, device=dev)
+                with FlopCounterMode(display=False) as fc:
+                    ea, eb = evaluator.model(None, ctx, ctx)
+                per_ctx = fc.get_total_flops() / 2
+                with FlopCounterMode(display=False) as fc:
+                    evaluator.model(torch.zeros(16, 35, 201, device=dev),
+                                    emb_a=ea.expand(16, -1),
+                                    emb_b=eb.expand(16, -1))
+                per_win = fc.get_total_flops() / 16
+            flops = nwin * per_win + 16 * per_ctx
+            runs = {}
+            for mode in ("kernel", "plain"):
+                dump = f"{tmp}/eval_{task}_{mode}"
+                log = timed_groups(evaluator)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                stft_cuda.log_spectrogram_kernel.launches = 0
+                t0 = time.perf_counter()
+                if mode == "plain":
+                    with plain_spectrogram(stft_cuda):
+                        metrics = evaluator.run(None, examples, modelname=task,
+                                                dump_results=dump,
+                                                return_metrics=True)
+                else:
+                    metrics = evaluator.run(None, examples, modelname=task,
+                                            dump_results=dump,
+                                            return_metrics=True)
+                wall = time.perf_counter() - t0
+                launches = stft_cuda.log_spectrogram_kernel.launches
+                peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+                del evaluator._forward
+                check(len(log) == 1, f"{task} {mode}: one group")
+                check(all(np.isfinite(v) for v in metrics.values()),
+                      f"{task} {mode}: metrics finite")
+                check({"stoi", "estoi", "pesq"} <= set(metrics),
+                      f"{task} {mode}: STOI, ESTOI and PESQ reported")
+                if task == "separator":
+                    check({"si_sdr_interferer", "confused_utts"}
+                          <= set(metrics), "separator confusion metrics")
+                card_ms, fwd_s = log[0]
+                say(f"[10 eval] {task} full width, {mode} spectrogram: "
+                    + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items())
+                    + f"; one group [8, 256000], {nwin} windows "
+                    f"({per_win / 1e9:.3f} GFLOP each) and 16 contexts, "
+                    f"{flops / 1e12:.1f} TFLOP: card {card_ms:.1f} ms by CUDA "
+                    f"events ({flops / card_ms / 1e9:.2f} TFLOP/s), host "
+                    f"scoring {wall - fwd_s:.2f} s, run {wall:.2f} s; peak "
+                    f"memory {peak_gb:.2f} GiB; {launches} kernel launches; "
+                    f"on {smi}")
+                runs[mode] = (metrics, dump, launches)
+            check(runs["kernel"][2] == 4,
+                  f"{task}: {runs['kernel'][2]} kernel launches, expected 4")
+            compare_metrics(runs["kernel"][0], runs["plain"][0],
+                            f"{task}: kernel vs plain spectrogram, metrics")
+            compare_dumps(runs["kernel"][1], runs["plain"][1],
+                          f"{task}: kernel vs plain spectrogram")
+            return runs["kernel"][2]
+
+        eval_launches = full_width("denoiser", DENOISER_NPZ)
+        full_width("separator", SEPARATOR_NPZ)
+
+        # the trainer scores its step-2 checkpoint in the loop and on a
+        # thread (overlapping step 3); cli.evaluate and eval_checkpoints
+        # rescore it
+        def train_eval(name, *flags):
+            args = ["--speech_wav_dir", corpus[0], "--noise_wav_dir",
+                    corpus[1], "--checkpoint_dir", f"{tmp}/ck_{name}",
+                    "--summaries_dir", f"{tmp}/sum_{name}", "--eval_utts",
+                    "4", "--wav_dump_folder", "", "--dump_results", "",
+                    "--batches", "3", "--eval_every", "2",
+                    "--no-eval_after_training", "--train_monitor_every",
+                    "1", *flags]
+            trainer = cli_train.build_trainer(args)
+            torch.cuda.synchronize()
+            stft_cuda.log_spectrogram_kernel.launches = 0
+            t0 = time.perf_counter()
+            trainer.train()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = stft_cuda.log_spectrogram_kernel.launches
+            check(launches == 4 * 3 + 4, f"{name}: {launches} kernel "
+                  "launches, expected 4 a step and 4 for the evaluation")
+            check(trainer._eval_thread is None, f"{name}: eval joined")
+            with open(f"{tmp}/sum_{name}/nhans.jsonl") as f:
+                evals = [r for r in map(json.loads, f) if "eval_loss" in r]
+            check([r["step"] for r in evals] == [2],
+                  f"{name}: one evaluation record, at step 2")
+            return ({k: v for k, v in evals[0].items()
+                     if k not in ("step", "time")}, wall)
+
+        sync_rec, w_sync = train_eval("eval_sync")
+        async_rec, w_async = train_eval("eval_async", "--async_eval")
+        say(f"[10 eval] trainer, 3 steps with the step-2 checkpoint scored on "
+            f"4 utterances: synchronous {w_sync:.2f} s, --async_eval "
+            f"{w_async:.2f} s; record "
+            + ", ".join(f"{k} {v:.4f}" for k, v in sync_rec.items()))
+        compare_metrics(async_rec, sync_rec,
+                        "trainer --async_eval against synchronous, step 2")
+        ck_root = f"{tmp}/ck_eval_sync/nhans"
+        data = ["--speech_wav_dir", corpus[0], "--noise_wav_dir", corpus[1],
+                "--eval_utts", "4"]
+        metrics = cli_evaluate.main(["--checkpoint", f"{ck_root}/2",
+                                     "--wav_dump_folder", "",
+                                     "--dump_results", "", *data])
+        compare_metrics(metrics, sync_rec,
+                        "cli.evaluate on the step-2 checkpoint against the "
+                        "trainer's record")
+        swept = eval_checkpoints.main(["--task", "denoiser",
+                                       "--checkpoint_root", ck_root,
+                                       "--eval_seeds", "valid", *data])
+        check([r["step"] for r in swept] == [2], "eval_checkpoints steps")
+        compare_metrics({k: v for k, v in swept[0].items() if k != "step"},
+                        sync_rec, "tools/eval_checkpoints against the "
+                        "trainer's record")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -645,7 +895,9 @@ def main() -> int:
             ("serving", (4, 160000, True), serving_launches,
              [(8, 32240), (4, 160000)]),
             ("training", (16, 163600, False), banked_launches,
-             [(16, 163600), (16, 64000)])):
+             [(16, 163600), (16, 64000)]),
+            ("evaluation", (8, 256000, True), eval_launches,
+             [(8, 256000)])):
         t = timings[key]
         kernels.append({
             "name": f"log_spectrogram ({path})",

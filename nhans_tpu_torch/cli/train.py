@@ -2,20 +2,24 @@
 ``nhans_tpu/cli/train.py``:
 
     python -m nhans_tpu_torch.cli.train --task denoiser \\
-        --speech_wav_dir speech/ --noise_wav_dir noise/ --eval_utts 0 \\
+        --speech_wav_dir speech/ --noise_wav_dir noise/ \\
         --batches 1000 --alg adam --lr 1e-4 --checkpoint_dir ck/
 
-``--device`` (default ``cuda``) chooses the card or ``cpu``.  The JAX
-package's TPU options (``--data_axis``/``--model_axis`` above 1,
-``--multihost``, ``--dtype bfloat16``, ``--remat``, ``--profile_dir``,
-``--async_eval``) and ``--freq_pad_to`` other than 0 are accepted by the
-parser and refused with a message, as is a run that would evaluate
-(``--eval_utts`` above 0): those parts are not ported yet (ROADMAP.md).
+``--device`` (default ``cuda``) chooses the card or ``cpu``.  Each
+checkpoint (every ``--eval_every`` steps and at the end) is scored on
+``--eval_utts`` utterances of the ``--eval_seeds`` split, synchronously
+or, with ``--async_eval``, on a thread while training goes on;
+``--eval_utts 0`` writes an all-zero record and reads no eval manifest.
+The JAX package's TPU options (``--data_axis``/``--model_axis`` above 1,
+``--multihost``, ``--dtype bfloat16``, ``--remat``, ``--profile_dir``)
+and ``--freq_pad_to`` other than 0 are accepted by the parser and refused
+with a message: those parts are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 
 from nhans_tpu_torch.config import add_training_flags, config_from_args
@@ -39,8 +43,8 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--num_processes", type=int, default=0)
     p.add_argument("--process_id", type=int, default=-1)
     p.add_argument("--eval_utts", type=int, default=16,
-                   help="utterances per evaluation pass (the evaluator "
-                        "is not ported: pass 0 to save without scoring)")
+                   help="utterances per evaluation pass (0: save "
+                        "without scoring, an all-zero record)")
     p.add_argument("--profile_dir", default="", help="not ported")
     p.add_argument("--dtype", choices=("float32", "bfloat16"),
                    default="float32", help="model compute dtype (only "
@@ -48,7 +52,10 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--remat", action="store_true", default=False,
                    help="not ported")
     p.add_argument("--async_eval", action=argparse.BooleanOptionalAction,
-                   default=False, help="not ported")
+                   default=False,
+                   help="score the periodic checkpoints on a thread (and "
+                        "a CUDA stream of its own) while training goes "
+                        "on")
     add_training_flags(p)
     return p
 
@@ -62,7 +69,6 @@ def _refusal(args) -> str:
         (args.dtype != "float32", f"--dtype {args.dtype}"),
         (args.remat, "--remat"),
         (bool(args.profile_dir), "--profile_dir"),
-        (args.async_eval, "--async_eval"),
         (args.freq_pad_to != 0, f"--freq_pad_to {args.freq_pad_to}"),
     ]
     names = [name for hit, name in refused if hit]
@@ -80,6 +86,8 @@ def build_trainer(argv=None):
     if msg:
         sys.exit(msg)
     cfg = config_from_args(args, task=args.task)
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                async_eval=args.async_eval))
 
     print("----------------------------- FLAGS VALUES "
           "--------------------------------")
@@ -89,7 +97,7 @@ def build_trainer(argv=None):
           "-------------------------")
     print(f"model_name: {cfg.train.model_name}")
 
-    from nhans_tpu_torch.train.trainer import EvaluationNotPorted, Trainer
+    from nhans_tpu_torch.train.trainer import Trainer
     from nhans_tpu_torch.utils.device import resolve_device
     try:
         device = resolve_device(args.device)
@@ -97,7 +105,7 @@ def build_trainer(argv=None):
         sys.exit(f"error: {err}")
     try:
         return Trainer(cfg, eval_utts=args.eval_utts, device=device)
-    except (EvaluationNotPorted, ValueError, FileNotFoundError) as err:
+    except (ValueError, FileNotFoundError) as err:
         sys.exit(f"error: {err}")
 
 

@@ -4,8 +4,8 @@ A copy of ``nhans_tpu/config.py``: the audio front end, the model
 architecture, the two task configurations, the input pipeline and the
 trainer, with the command-line flags that fill them.  Fields
 that select TPU machinery (the STFT implementation, the compute dtype,
-rematerialisation, the mesh axes, profiling, asynchronous evaluation) are
-left out: the training command line refuses them.  The port keeps its own
+rematerialisation, the mesh axes, profiling) are left out: the training
+command line refuses them.  The port keeps its own
 copy so that it never imports the JAX package.
 """
 
@@ -184,6 +184,8 @@ class TrainConfig:
     lr_schedule: str = "constant"  # constant | cosine
     lr_decay_steps: int = 0        # cosine horizon (0 = constant)
     lr_min_frac: float = 0.1       # final lr as a fraction of --lr
+    # score the periodic checkpoints on a thread while training goes on
+    async_eval: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

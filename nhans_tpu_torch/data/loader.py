@@ -1,8 +1,9 @@
-"""The streaming training loader: worker threads that only decode wavs
-into fixed-shape int16 buffers, and a prefetch thread that moves them to
-the device.  The port of ``nhans_tpu/data/loader.py::TrainLoader`` and
-``prefetch_to_device``, for one process; decoding goes through the
-port's ``utils/wavio.py``.
+"""The loaders: the streaming training loader (worker threads that only
+decode wavs into fixed-shape int16 buffers), the deterministic
+evaluation loader, and a prefetch thread that moves batches to the
+device.  The port of ``nhans_tpu/data/loader.py::TrainLoader``,
+``EvalLoader`` and ``prefetch_to_device``, for one process; decoding goes
+through the port's ``utils/wavio.py``.
 
 Mixing, spectrograms and crops happen on the device
 (``data/pipeline.py``).  A worker's exception is raised in the consumer,
@@ -11,8 +12,10 @@ not swallowed.
 
 from __future__ import annotations
 
+import collections
 import queue
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
@@ -21,6 +24,7 @@ import torch
 from nhans_tpu_torch.config import Config
 from nhans_tpu_torch.data.banks import build_disjoint_table
 from nhans_tpu_torch.data.manifest import load_seeds
+from nhans_tpu_torch.dsp.mixing import snr_index_from_path
 from nhans_tpu_torch.utils import wavio
 
 
@@ -173,6 +177,96 @@ class TrainLoader:
         self._stop.set()
         for t in self._threads:
             t.join(timeout=2.0)
+
+
+class EvalLoader:
+    """Deterministic one-epoch stream of evaluation utterances, the port
+    of ``nhans_tpu/data/loader.py::EvalLoader``.
+
+    Speech files in manifest order.  Pairing ``wrap`` (every utterance
+    scored): the denoiser takes noises 2i and 2i + 1 of the noise
+    manifest, cycled; the separator takes the next speech utterance as
+    its interferer.  Pairing ``queue`` (the reference's one-epoch queue
+    order): the same noises, ending where the noise manifest runs out;
+    the separator pairs speech 2j with speech 2j + 1.  SNRs come from
+    the md5 of the clean path (8 hex digits for the positive noise, 6
+    for the negative).  Files decode on a thread pool; examples come out
+    in plan order.
+
+    Yields dicts: clean/noise_a/noise_b float32 samples (int16 scale,
+    capped at ``max_samples``), their lengths, the whole-file peaks [3],
+    the SNRs and the three paths (``path_b`` "" for the separator).
+    """
+
+    def __init__(self, cfg: Config, split: Optional[str] = None,
+                 limit: Optional[int] = None,
+                 num_workers: Optional[int] = None):
+        self.cfg = cfg
+        split = split or cfg.data.eval_seeds
+        self.speech = load_seeds(cfg.data.speech_wav_dir, split)
+        self.two_noise = cfg.task.two_noise_mixing
+        self.noise = (load_seeds(cfg.data.noise_wav_dir, split)
+                      if self.two_noise else self.speech)
+        if limit:
+            self.speech = self.speech[:limit]
+        self.L = cfg.data.max_samples
+        self.num_workers = (num_workers if num_workers is not None
+                            else min(cfg.data.num_workers, 8))
+
+    def _plan(self):
+        snrs = self.cfg.task.snr_set
+        queue_order = self.cfg.data.eval_pairing == "queue"
+        for i, cpath in enumerate(self.speech):
+            if self.two_noise:
+                if queue_order and 2 * i + 1 >= len(self.noise):
+                    return  # the one-epoch noise queue ran out
+                apath = self.noise[(2 * i) % len(self.noise)]
+                bpath = self.noise[(2 * i + 1) % len(self.noise)]
+                snr_a = snrs[snr_index_from_path(cpath, len(snrs), 8)]
+                snr_b = snrs[snr_index_from_path(cpath, len(snrs), 6)]
+            else:
+                if queue_order:
+                    # two dequeues of the one speech queue per example
+                    if 2 * i + 1 >= len(self.speech):
+                        return
+                    cpath = self.speech[2 * i]
+                    apath = self.speech[2 * i + 1]
+                else:
+                    apath = self.speech[(i + 1) % len(self.speech)]
+                bpath = None
+                snr_a = snrs[snr_index_from_path(cpath, len(snrs), 8)]
+                snr_b = 0
+            yield cpath, apath, bpath, snr_a, snr_b
+
+    def _load(self, item) -> Dict:
+        cpath, apath, bpath, snr_a, snr_b = item
+        clean, n_c, pk_c = _decode(cpath, self.L)
+        na, n_a, pk_a = _decode(apath, self.L)
+        nb, n_b, pk_b = (_decode(bpath, self.L) if bpath
+                         else (np.zeros(1, np.float32), 0, 0.0))
+        return {
+            "clean": clean, "noise_a": na, "noise_b": nb,
+            "clean_len": n_c, "len_a": n_a, "len_b": n_b,
+            "peaks": np.asarray([pk_c, pk_a, pk_b], np.float32),
+            "snr_a": snr_a, "snr_b": snr_b,
+            "cleanpath": cpath, "path_a": apath, "path_b": bpath or "",
+        }
+
+    def __iter__(self):
+        if self.num_workers <= 1:
+            for item in self._plan():
+                yield self._load(item)
+            return
+        # a sliding window of decodes in flight, read in plan order
+        depth = self.num_workers * 2
+        with ThreadPoolExecutor(self.num_workers) as pool:
+            pending = collections.deque()
+            for item in self._plan():
+                pending.append(pool.submit(self._load, item))
+                if len(pending) >= depth:
+                    yield pending.popleft().result()
+            while pending:
+                yield pending.popleft().result()
 
 
 def prefetch_to_device(iterator, device, depth: int = 2):

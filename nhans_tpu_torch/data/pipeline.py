@@ -1,6 +1,7 @@
 """The training batch built on the device: mixing -> spectrogram ->
 synchronised random crops, the port of
-``nhans_tpu/data/pipeline.py::make_train_batch``.
+``nhans_tpu/data/pipeline.py::make_train_batch``; and the evaluation
+windows of one utterance (``make_eval_batch``).
 
 Shapes are fixed per call: waveform buffers [B, L] with valid lengths
 [B]; the spectrogram has F = num_frames(L) frames, of which ``nf[b]`` are
@@ -243,4 +244,43 @@ def make_train_batch(cfg: Config, clean: torch.Tensor, noise_a: torch.Tensor,
         "ctx_b": ctx_b.reshape(B * K, C, nfeat),
         "snr_a": torch.repeat_interleave(snr_a, K),
         "snr_b": torch.repeat_interleave(snr_b, K),
+    }
+
+
+def make_eval_batch(cfg: Config, mixed: torch.Tensor, target: torch.Tensor,
+                    ctx_a_sig: torch.Tensor, ctx_b_sig: torch.Tensor,
+                    n: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Deterministic evaluation windows of ONE utterance (signals [1, L],
+    ``n`` [1] its valid length), the port of
+    ``nhans_tpu/data/pipeline.py::make_eval_batch``: the first
+    ``context_frames`` frames give the two contexts, and the model sees a
+    window at every frame (stride 1) of the rest.  ``valid`` marks the
+    windows whose frame lies within the utterance; ``mixed_ph`` is the
+    mixture's phase, arctan2(im, re)."""
+    a, m = cfg.audio, cfg.model
+    fl, fs = a.frame_length, a.frame_step
+    W, C = m.window_frames, m.context_frames
+    pad_before = ((W + 1) // 2) - 1
+
+    lm_mixed, re, im = sp.spectrogram_reim(mixed, fl, fs, a.log_eps)
+    lm_target = sp.log_spectrogram(target, fl, fs, a.log_eps)
+    lm_a = sp.log_spectrogram(ctx_a_sig, fl, fs, a.log_eps)
+    lm_b = sp.log_spectrogram(ctx_b_sig, fl, fs, a.log_eps)
+
+    nf = _valid_frames(_whole_frames(n, fl, fs), fl, fs)
+    nwin = lm_mixed.shape[-2] - C
+    rest = lm_mixed[..., C:, :]
+    padded = torch.nn.functional.pad(rest, (0, 0, pad_before, W // 2))
+    dev = lm_mixed.device
+    idx = (torch.arange(nwin, device=dev)[:, None]
+           + torch.arange(W, device=dev)[None, :])
+    return {
+        "mixed": padded[..., idx, :],
+        "target": lm_target[..., C:, :],
+        "mixed_lm": rest,
+        "mixed_ph": torch.atan2(im, re)[..., C:, :],
+        "ctx_a": lm_a[..., :C, :],
+        "ctx_b": lm_b[..., :C, :],
+        "valid": torch.arange(nwin, device=dev) < (nf - C),
+        "num_windows": torch.clamp(nf - C, min=0),
     }

@@ -160,6 +160,18 @@ def log_spectrogram(x: torch.Tensor, frame_length: int = 400,
     return lm[0] if x.ndim == 1 else lm
 
 
+def unit_phase(re: torch.Tensor, im: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) of the phase of re + i im, as re/|X| and im/|X|, and
+    (1, 0) where |X| = 0, which is what cos and sin of arctan2(0, 0) give:
+    zero-padded frames have |X| = 0, and a plain division would give NaN
+    there, which a zero magnitude does not cancel."""
+    mag = torch.sqrt(re * re + im * im)
+    inv = 1.0 / torch.clamp(mag, min=1e-30)
+    return (torch.where(mag > 0, re * inv, 1.0),
+            torch.where(mag > 0, im * inv, 0.0))
+
+
 def overlap_add(frames: torch.Tensor, frame_step: int = 160) -> torch.Tensor:
     """Overlap-add [..., F, L] -> [..., frame_step*(F-1)+L].
 

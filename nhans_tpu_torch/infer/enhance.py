@@ -44,6 +44,34 @@ DEFAULT_BUCKETS_SECONDS = (1, 1.25, 1.5, 1.75, 2, 2.25, 2.5, 2.75, 3,
                            16, 20, 24, 32, 40, 48, 64, 80, 96, 128)
 
 
+def window_residuals(model: NHANSNet, logmag: torch.Tensor,
+                     emb_a: torch.Tensor, emb_b: torch.Tensor,
+                     window_chunk: int) -> torch.Tensor:
+    """Model residuals [B, F, bins] for every frame's window of
+    ``logmag`` [B, F, bins], the windows gathered ``window_chunk`` at a
+    time from the zero-padded log-magnitude (17 frames before, 17 after)
+    rather than materialised at once.  ``emb_a``/``emb_b`` [B, 512] are
+    the rows' context embeddings."""
+    W = model.cfg.window_frames
+    B, nframes, nfeat = logmag.shape
+    padded = F.pad(logmag, (0, 0, (W + 1) // 2 - 1, W // 2))
+    flat_spec = padded.reshape(-1, nfeat)
+    fp = nframes + W - 1
+    karange = torch.arange(W, device=logmag.device)
+    nwin = B * nframes
+    out = torch.empty((nwin, nfeat), dtype=logmag.dtype,
+                      device=logmag.device)
+    for start in range(0, nwin, window_chunk):
+        widx = torch.arange(start, min(start + window_chunk, nwin),
+                            device=logmag.device)
+        b = widx // nframes
+        rows = b * fp + widx % nframes
+        wchunk = flat_spec[rows[:, None] + karange[None, :]]
+        out[start:start + len(widx)] = model(wchunk, emb_a=emb_a[b],
+                                             emb_b=emb_b[b])
+    return out.reshape(B, nframes, nfeat)
+
+
 class Enhancer:
     """Enhancement engine for a task (denoiser or separator).
 
@@ -114,31 +142,6 @@ class Enhancer:
             self._ctx_cache.popitem(last=False)
         return embs
 
-    def _residuals(self, logmag: torch.Tensor, emb_a: torch.Tensor,
-                   emb_b: torch.Tensor) -> torch.Tensor:
-        """Model residuals [B, F, bins] for every frame's window, the
-        windows gathered chunk by chunk from the zero-padded log-magnitude
-        (17 frames before, 17 after) rather than materialised at once."""
-        m = self.cfg.model
-        W = m.window_frames
-        B, nframes, nfeat = logmag.shape
-        padded = F.pad(logmag, (0, 0, (W + 1) // 2 - 1, W // 2))
-        flat_spec = padded.reshape(-1, nfeat)
-        fp = nframes + W - 1
-        karange = torch.arange(W, device=self.device)
-        nwin = B * nframes
-        out = torch.empty((nwin, nfeat), dtype=logmag.dtype,
-                          device=self.device)
-        for start in range(0, nwin, self.window_chunk):
-            widx = torch.arange(start, min(start + self.window_chunk, nwin),
-                                device=self.device)
-            b = widx // nframes
-            rows = b * fp + widx % nframes
-            wchunk = flat_spec[rows[:, None] + karange[None, :]]
-            out[start:start + len(widx)] = self.model(
-                wchunk, emb_a=emb_a[b], emb_b=emb_b[b])
-        return out.reshape(B, nframes, nfeat)
-
     @torch.inference_mode()
     @full_float32()
     def _run(self, mixed: np.ndarray, ints: np.ndarray, peaks: np.ndarray,
@@ -162,7 +165,8 @@ class Enhancer:
         fmask = ((far < torch.minimum(nf, keep_until)[:, None])
                  & (far >= keep_from[:, None]))                  # [B, F]
 
-        residuals = self._residuals(logmag, emb_a, emb_b)
+        residuals = window_residuals(self.model, logmag, emb_a, emb_b,
+                                     self.window_chunk)
         cap = a.recon_residual_cap
         if cap > 0:
             # amplification cap: inert on healthy outputs, bounds
@@ -181,10 +185,7 @@ class Enhancer:
         # masked reconstruction with the mixed phase: cos/sin of the phase
         # are re/|X| and im/|X|
         mask = fmask[..., None].to(logmag.dtype)
-        smag = torch.sqrt(s_re * s_re + s_im * s_im)
-        inv = 1.0 / torch.clamp(smag, min=1e-30)
-        cosp = torch.where(smag > 0, s_re * inv, 1.0)
-        sinp = torch.where(smag > 0, s_im * inv, 0.0)
+        cosp, sinp = sp.unit_phase(s_re, s_im)
 
         def recon(lm):
             mag = torch.exp(lm) * mask

@@ -8,13 +8,15 @@ from __future__ import annotations
 
 import json
 import os
+import threading
 import time
 from typing import Dict, Optional
 
 
 class MetricsWriter:
     """JSONL (the record) and a TensorBoard event file, both under
-    ``--summaries_dir``."""
+    ``--summaries_dir``.  Safe to call from an evaluation thread beside
+    the training loop."""
 
     def __init__(self, summaries_dir: str, name: str,
                  tensorboard: bool = True):
@@ -22,6 +24,7 @@ class MetricsWriter:
         self.path = os.path.join(summaries_dir, f"{name}.jsonl")
         self._f = open(self.path, "a", buffering=1)
         self._tb = None
+        self._lock = threading.Lock()
         if tensorboard:
             from nhans_tpu_torch.utils.tb_events import EventFileWriter
             self._tb = EventFileWriter(summaries_dir, name_suffix=name)
@@ -29,14 +32,16 @@ class MetricsWriter:
     def write(self, step: int, tag_values: Dict[str, float]) -> None:
         rec = {"step": int(step), "time": time.time()}
         rec.update({k: float(v) for k, v in tag_values.items()})
-        self._f.write(json.dumps(rec) + "\n")
-        if self._tb is not None:
-            self._tb.add_scalars(step, tag_values)
+        with self._lock:
+            self._f.write(json.dumps(rec) + "\n")
+            if self._tb is not None:
+                self._tb.add_scalars(step, tag_values)
 
     def close(self) -> None:
-        self._f.close()
-        if self._tb is not None:
-            self._tb.close()
+        with self._lock:
+            self._f.close()
+            if self._tb is not None:
+                self._tb.close()
 
 
 class Monitor:

@@ -12,14 +12,23 @@
   before its batch is fetched to after its last kernel, so by the
   device's clock with the input wait included; the metrics record holds
   the mean over the monitor window as ``step_device_ms``.
-* Checkpoints are saved every ``eval_every`` steps and at the end.  The
-  evaluation pass itself is not ported yet (ROADMAP.md, Queue 1): with
-  ``eval_utts=0`` a save does not score, and a run that would score
-  refuses to start.
+* Every ``eval_every`` steps and at the end, a checkpoint is saved and
+  its weights are scored on ``EvalLoader(cfg, limit=eval_utts)``
+  (``train/evaluate.py``), and the metrics go to the record at that
+  step.  The evaluator holds its own copy of the model in inference
+  mode, so the training module's mode never changes.  With
+  ``async_eval`` the copy is taken on the device at save time, ordered
+  after the step that produced it, and scored on a host thread (on a
+  CUDA stream of its own on a card) while training goes on; the
+  previous evaluation is joined before the next one starts and at
+  shutdown.  With ``eval_utts=0`` the record gets the JAX trainer's
+  all-zero ``eval_loss``/``si_sdr``/``si_sdr_mixed``/``si_sdr_gain``,
+  and no eval manifest is read.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Optional
 
@@ -28,8 +37,11 @@ import torch
 from nhans_tpu_torch.config import Config
 from nhans_tpu_torch.data.banks import (BankIndexLoader, DeviceBanks,
                                         banks_enabled)
-from nhans_tpu_torch.data.loader import TrainLoader, prefetch_to_device
+from nhans_tpu_torch.data.loader import (EvalLoader, TrainLoader,
+                                         prefetch_to_device)
+from nhans_tpu_torch.models import build_model
 from nhans_tpu_torch.train import checkpoint as ckpt
+from nhans_tpu_torch.train.evaluate import Evaluator
 from nhans_tpu_torch.train.metrics import MetricsWriter, Monitor
 from nhans_tpu_torch.train.step import (create_state, make_train_step,
                                         param_counts, state_of,
@@ -38,17 +50,16 @@ from nhans_tpu_torch.utils.device import resolve_device
 from nhans_tpu_torch.utils.watchdog import Heartbeat
 
 
-class EvaluationNotPorted(RuntimeError):
-    """The run would evaluate, and the evaluator is not ported yet."""
-
-
 class Trainer:
+    """``eval_utts``: utterances a scoring pass takes (None: the whole
+    eval split); ``eval_kwargs``: the ``Evaluator``'s own arguments."""
+
     def __init__(self, cfg: Config, eval_utts: Optional[int] = 16,
-                 device="cuda"):
+                 device="cuda", eval_kwargs: Optional[dict] = None):
         self.cfg = cfg
         t = cfg.train
         self.device = resolve_device(device)
-        self.eval_utts = eval_utts or 0
+        self.eval_utts = eval_utts
         init = torch.Generator()
         init.manual_seed(cfg.data.seed)
         self.model, self.state, self.tx = create_state(cfg, init,
@@ -58,6 +69,10 @@ class Trainer:
                                        banked=self.banked)
         self.ckpt = ckpt.Checkpointer(t.checkpoint_dir,
                                       t.checkpoints_to_keep, t.model_name)
+        self.evaluator = Evaluator(cfg, build_model(cfg).to(self.device),
+                                   **(eval_kwargs or {}))
+        self._eval_thread: Optional[threading.Thread] = None
+        self._eval_error: Optional[BaseException] = None
         self.writer = MetricsWriter(t.summaries_dir, t.model_name)
         self.monitor = Monitor(t.train_monitor_every, self.writer)
         self.tstep = 0
@@ -68,21 +83,6 @@ class Trainer:
         print(f"#trainable variables: {trainable}")
         print(f"#non-trainable variables: {non_trainable}")
         self._restore()
-        if self.eval_utts > 0 and self._would_evaluate():
-            raise EvaluationNotPorted(
-                "this run would evaluate (--eval_utts "
-                f"{self.eval_utts}: eval_before_training="
-                f"{t.eval_before_training}, eval_after_training="
-                f"{t.eval_after_training}, eval_every={t.eval_every}, "
-                f"batches={t.batches}), and the evaluator is not ported to "
-                "nhans_tpu_torch yet (see ROADMAP.md, Queue 1); pass "
-                "--eval_utts 0 to train and save checkpoints without "
-                "scoring")
-
-    def _would_evaluate(self) -> bool:
-        t = self.cfg.train
-        return (t.eval_before_training or t.eval_after_training
-                or t.batches // t.eval_every > self.tstep // t.eval_every)
 
     def _restore(self) -> None:
         t = self.cfg.train
@@ -118,13 +118,70 @@ class Trainer:
         if hb is not None:
             hb.beat(phase)
 
-    def save_and_eval(self) -> None:
+    def save_and_eval(self, async_eval: bool = False) -> None:
         print("Saving the model")
         self._beat(f"save(step {self.tstep})")
         path = self.ckpt.save(self.tstep, self.state, self.cfg.train.alg)
         print(f"checkpoint written: {path}")
+        step = self.tstep
+        # the previous evaluation reads the evaluator's weights to its end
+        self._join_eval()
         if self.eval_utts == 0:
-            print("evaluation skipped (--eval_utts 0)")
+            self._eval(step, loader=[])
+            return
+        self._beat(f"eval(step {step})")
+        # the snapshot: copies queued on this stream after the step
+        self.evaluator.model.load_state_dict(self.model.state_dict())
+        if not async_eval:
+            self._eval(step)
+            return
+        ready = None
+        if self.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
+        self._eval_thread = threading.Thread(
+            target=self._eval_async, args=(step, ready), daemon=True,
+            name=f"eval-step-{step}")
+        self._eval_thread.start()
+
+    def _eval(self, step: int, loader=None) -> None:
+        """Score the evaluator's weights and write the metrics at
+        ``step``."""
+        t = self.cfg.train
+        print("----------------- TEST MONITOR ----------------------")
+        if loader is None:
+            loader = EvalLoader(self.cfg, limit=self.eval_utts)
+        metrics = self.evaluator.run(
+            None, loader, step=step, modelname=t.model_name,
+            wav_dump_folder=t.wav_dump_folder or None,
+            dump_results=t.dump_results or None,
+            max_utts=self.eval_utts, return_metrics=True)
+        self.writer.write(step, metrics)
+        print("-----------------------------------------------------")
+
+    def _eval_async(self, step: int, ready) -> None:
+        """The thread's body: on a card, a stream of its own that first
+        waits for the snapshot's copies.  A failure is raised by the
+        next join."""
+        try:
+            if ready is None:
+                self._eval(step)
+                return
+            stream = torch.cuda.Stream(self.device)
+            with torch.cuda.stream(stream):
+                stream.wait_event(ready)
+                self._eval(step)
+            stream.synchronize()
+        except BaseException as err:  # raised again in _join_eval
+            self._eval_error = err
+
+    def _join_eval(self) -> None:
+        if self._eval_thread is not None:
+            self._eval_thread.join()
+            self._eval_thread = None
+        if self._eval_error is not None:
+            err, self._eval_error = self._eval_error, None
+            raise RuntimeError("asynchronous evaluation failed") from err
 
     def train(self) -> None:
         cfg, t = self.cfg, self.cfg.train
@@ -181,12 +238,15 @@ class Trainer:
                         self.monitor.update(first + i, values, iw)
                     pending = []
                 if self.tstep % t.eval_every == 0:
-                    self.save_and_eval()
+                    self.save_and_eval(async_eval=t.async_eval)
             if t.eval_after_training:
                 self.save_and_eval()
         finally:
-            self._beat("shutdown")
-            stream.close()
-            loader.close()
-            self.writer.close()
-            self._heartbeat.stop()
+            self._beat("shutdown: join the evaluation thread")
+            try:
+                self._join_eval()
+            finally:
+                stream.close()
+                loader.close()
+                self.writer.close()
+                self._heartbeat.stop()

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
 
@@ -31,19 +32,46 @@ def to_device(t: torch.Tensor, device) -> torch.Tensor:
     return t.to(device)
 
 
-@contextlib.contextmanager
-def full_float32():
-    """TF32 off in cuDNN and in matmuls while serving or a train step
-    launches its device work, and the process's settings back afterwards.
-    The JAX reference takes its convolutions and DFTs in full float32
-    (Precision.HIGHEST); cuDNN runs float32 convolutions in TF32 by
-    default, which keeps about three decimal digits.  The flags are read
-    when a kernel is launched, so work still running afterwards keeps
-    them."""
-    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
-    saved = cudnn.allow_tf32, matmul.allow_tf32
-    cudnn.allow_tf32 = matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        cudnn.allow_tf32, matmul.allow_tf32 = saved
+class _Float32Scope(contextlib.ContextDecorator):
+    """TF32 off while any thread is inside: the flags are process-wide, so
+    the first thread in saves and clears them and the last one out puts
+    them back.  A thread that leaves while another is still inside (an
+    evaluation on a thread of its own beside a train step) leaves them
+    off."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._depth = 0
+        self._saved = None
+
+    def __enter__(self):
+        cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+        with self._lock:
+            if self._depth == 0:
+                self._saved = cudnn.allow_tf32, matmul.allow_tf32
+                cudnn.allow_tf32 = matmul.allow_tf32 = False
+            self._depth += 1
+        return self
+
+    def __exit__(self, *exc):
+        cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+        with self._lock:
+            self._depth -= 1
+            if self._depth == 0:
+                cudnn.allow_tf32, matmul.allow_tf32 = self._saved
+        return False
+
+
+_FLOAT32 = _Float32Scope()
+
+
+def full_float32() -> _Float32Scope:
+    """TF32 off in cuDNN and in matmuls while serving, evaluation or a
+    train step launches its device work, and the process's settings back
+    afterwards; a context manager and a decorator.  The JAX reference
+    takes its convolutions and DFTs in full float32 (Precision.HIGHEST);
+    cuDNN runs float32 convolutions in TF32 by default, which keeps about
+    three decimal digits.  The flags are read when a kernel is launched,
+    so work still running afterwards keeps them.  Scopes of several
+    threads may overlap: the flags stay off until the last one ends."""
+    return _FLOAT32

@@ -3,6 +3,7 @@ them where JAX is not installed (the machine with the GPU).
 
     python tests/make_torch_golden.py          # serving
     python tests/make_torch_golden.py train    # one training step
+    python tests/make_torch_golden.py eval     # an evaluation pass
 
 The first runs ``nhans_tpu``'s ``Enhancer(out_wire="float32")`` with the
 shipped ``docs/quality/denoiser_q5_swa.npz`` on a seeded 1.5 s input and
@@ -20,23 +21,36 @@ random draws, the loss, the gradient norm, the update of a few layers
 (``stats/<flax path>``).  ``tests/test_torch_train_golden.py`` and
 ``chip_smoke.py`` hold the port to it.
 
+The third runs the JAX package's ``Evaluator`` at full width with the
+same weights on two seeded utterances of 2.45 and 2.5 s (one group of
+two, one 2.5 s bucket), passed as example dicts with fixed SNRs, and
+writes ``tests/data/torch_golden_eval.npz``: the inputs' digest, the
+SNRs and lengths, the metrics (``metric/<name>``), each utterance's mean
+window loss and scores (``utt/<name>``, scored from the dumped
+reconstructions) and the ``denoised`` waveforms.
+``tests/test_torch_eval_golden.py`` and ``chip_smoke.py`` hold the port
+to it through ``port_eval_golden``.
+
 The helpers here (``golden_inputs``, ``jax_variables``, ``twin_configs``,
-``jax_train_draws``) are shared by the port's tests.  ``golden_inputs``
-needs numpy only.
+``jax_train_draws``, ``golden_eval_examples``) are shared by the port's
+tests.  ``golden_inputs`` and ``golden_eval_examples`` need numpy only.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
 import hashlib
 import os
 import sys
+import tempfile
 
 import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(REPO, "tests", "data", "torch_golden_denoiser.npz")
 GOLDEN_TRAIN = os.path.join(REPO, "tests", "data", "torch_golden_train.npz")
+GOLDEN_EVAL = os.path.join(REPO, "tests", "data", "torch_golden_eval.npz")
 DENOISER_NPZ = os.path.join(REPO, "docs", "quality", "denoiser_q5_swa.npz")
 SEPARATOR_NPZ = os.path.join(REPO, "docs", "quality", "separator_q5_swa.npz")
 SEED = 20240
@@ -264,12 +278,123 @@ def port_train_golden(device="cpu", golden=None) -> dict:
     return out
 
 
+# the evaluation golden: one group of two utterances on a 2.5 s bucket
+EVAL_SEED = 20260
+EVAL_KW = dict(eval_batch=2, buckets_seconds=(2.5,), window_chunk=256)
+EVAL_SCORES = ("si_sdr", "stoi", "estoi", "pesq")
+
+
+def golden_eval_examples(seed: int = EVAL_SEED) -> list:
+    """Two evaluation examples as ``EvalLoader`` yields them (int16-scale
+    float32 samples, lengths, whole-file peaks, fixed SNRs and made-up
+    paths): harmonic utterances of 2.45 and 2.5 s with a moving pitch, a
+    positive noise shorter than the utterance and a louder negative noise
+    longer than it."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i, (n, snr_a, snr_b) in enumerate(((39200, 0, 5), (40000, -5, 0))):
+        t = np.arange(n) / 16000.0
+        f0 = 150.0 + 40.0 * i + 30.0 * np.sin(2 * np.pi * 0.8 * t)
+        phase = 2 * np.pi * np.cumsum(f0) / 16000.0
+        voice = sum(np.sin(h * phase) / h for h in range(1, 7))
+        clean = 7000.0 * voice * (0.6 + 0.4 * np.sin(2 * np.pi * 2.1 * t))
+        na = rng.standard_normal(21000 + 3000 * i) * 1200.0
+        nb = rng.standard_normal(45000) * 2500.0
+        ex = {k: np.rint(v).astype(np.float32)
+              for k, v in (("clean", clean), ("noise_a", na),
+                           ("noise_b", nb))}
+        ex.update(clean_len=n, len_a=len(na), len_b=len(nb),
+                  snr_a=snr_a, snr_b=snr_b,
+                  cleanpath=f"golden/clean{i}.wav",
+                  path_a=f"golden/pos{i}.wav", path_b=f"golden/neg{i}.wav")
+        ex["peaks"] = np.asarray([np.abs(ex[k]).max() for k in
+                                  ("clean", "noise_a", "noise_b")],
+                                 np.float32)
+        out.append(ex)
+    return out
+
+
+def eval_digest(examples) -> str:
+    return input_digest(*[ex[k] for ex in examples
+                          for k in ("clean", "noise_a", "noise_b")])
+
+
+def _eval_record(metrics: dict, dump: str, scoring) -> dict:
+    """The golden file's keys from an evaluator's metrics and its dumped
+    per-window losses and reconstructions, scored with ``scoring``."""
+    out = {f"metric/{k}": np.float64(v) for k, v in metrics.items()}
+    n = len(glob.glob(os.path.join(dump, "golden_eval_0_loss_*.npy")))
+    utt = {k: [] for k in ("loss",) + EVAL_SCORES}
+    for i in range(n):
+        def load(kind):
+            return np.load(os.path.join(dump,
+                                        f"golden_eval_0_{kind}_{i}.npy"))
+        den, tgt = load("denoised"), load("target")
+        utt["loss"].append(float(np.mean(load("loss"))))
+        utt["si_sdr"].append(scoring.si_sdr(den, tgt))
+        utt["stoi"].append(scoring.stoi(den, tgt, 16000))
+        utt["estoi"].append(scoring.estoi(den, tgt, 16000))
+        utt["pesq"].append(scoring.pesq_score(den, tgt, 16000))
+        out[f"denoised_{i}"] = den.astype(np.float32)
+    out.update({f"utt/{k}": np.asarray(v, np.float64)
+                for k, v in utt.items()})
+    return out
+
+
+def jax_eval_golden() -> dict:
+    """The JAX package's Evaluator at full width (CPU) with the shipped
+    denoiser on ``golden_eval_examples``."""
+    from nhans_tpu.config import Config
+    from nhans_tpu.models import build_model
+    from nhans_tpu.train.evaluate import Evaluator
+    from nhans_tpu.utils import scoring
+
+    cfg = Config.denoiser()
+    examples = golden_eval_examples()
+    with tempfile.TemporaryDirectory() as dump:
+        metrics = Evaluator(cfg, build_model(cfg), **EVAL_KW).run(
+            jax_variables(DENOISER_NPZ), examples, modelname="golden",
+            dump_results=dump, return_metrics=True)
+        out = _eval_record(metrics, dump, scoring)
+    out.update(seed=np.int64(EVAL_SEED),
+               input_sha256=np.array(eval_digest(examples)),
+               snr_a=np.asarray([ex["snr_a"] for ex in examples]),
+               snr_b=np.asarray([ex["snr_b"] for ex in examples]),
+               clean_len=np.asarray([ex["clean_len"] for ex in examples]))
+    return out
+
+
+def port_eval_golden(device="cpu") -> dict:
+    """The port's Evaluator on the evaluation golden's examples with the
+    same weights, on ``device``: the file's metric, per-utterance and
+    waveform keys, computed by the port.  Needs torch only."""
+    from nhans_tpu_torch.compat.weights import load_npz
+    from nhans_tpu_torch.config import Config
+    from nhans_tpu_torch.models import build_model
+    from nhans_tpu_torch.train.evaluate import Evaluator
+    from nhans_tpu_torch.utils import scoring
+
+    cfg = Config.denoiser()
+    model = build_model(cfg)
+    model.load_state_dict(load_npz(DENOISER_NPZ))
+    evaluator = Evaluator(cfg, model.to(device), **EVAL_KW)
+    with tempfile.TemporaryDirectory() as dump:
+        metrics = evaluator.run(None, golden_eval_examples(),
+                                modelname="golden", dump_results=dump,
+                                return_metrics=True)
+        return _eval_record(metrics, dump, scoring)
+
+
 def main() -> None:
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     sys.path.insert(0, REPO)
     if sys.argv[1:] == ["train"]:
         np.savez_compressed(GOLDEN_TRAIN, **jax_train_golden())
         print(f"wrote {GOLDEN_TRAIN} ({os.path.getsize(GOLDEN_TRAIN)} bytes)")
+        return
+    if sys.argv[1:] == ["eval"]:
+        np.savez_compressed(GOLDEN_EVAL, **jax_eval_golden())
+        print(f"wrote {GOLDEN_EVAL} ({os.path.getsize(GOLDEN_EVAL)} bytes)")
         return
     out = jax_golden_run()
     os.makedirs(os.path.dirname(GOLDEN), exist_ok=True)

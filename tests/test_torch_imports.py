@@ -37,12 +37,14 @@ def test_every_module_imports_with_jax_blocked():
     assert r.returncode == 0, r.stderr
     # config, 11 subpackages, dsp/{spectral,mixing},
     # ops/{_build,stft_cuda}, nn/{blocks,model}, compat/weights,
-    # infer/enhance, utils/{device,wavio,tb_events,watchdog},
-    # cli/{_app,denoiser,separator,train,seeds},
+    # infer/enhance,
+    # utils/{device,wavio,tb_events,watchdog,scoring,pesq_np},
+    # cli/{_app,denoiser,separator,train,seeds,evaluate},
     # data/{manifest,banks,loader,pipeline},
-    # train/{optim,step,checkpoint,metrics,trainer},
-    # tools/{devtime,profile_serving,profile_training,spectrogram_anatomy}
-    assert int(r.stdout.strip()) == 42
+    # train/{optim,step,checkpoint,metrics,trainer,evaluate},
+    # tools/{devtime,profile_serving,profile_training,spectrogram_anatomy,
+    #        eval_checkpoints}
+    assert int(r.stdout.strip()) == 47
 
 
 @pytest.mark.parametrize("path", PORT_SOURCES)
@@ -75,9 +77,12 @@ def test_golden_helpers_import_with_jax_blocked():
             "for name in ('jax', 'jaxlib', 'flax', 'nhans_tpu'):\n"
             "    sys.modules[name] = None\n"
             "from tests.make_torch_golden import (DENOISER_NPZ, GOLDEN,\n"
-            "    SEPARATOR_NPZ, golden_inputs, input_digest)\n"
-            "print(input_digest(*golden_inputs()))\n")
+            "    GOLDEN_EVAL, SEPARATOR_NPZ, eval_digest,\n"
+            "    golden_eval_examples, golden_inputs, input_digest,\n"
+            "    port_eval_golden)\n"
+            "print(input_digest(*golden_inputs()))\n"
+            "print(eval_digest(golden_eval_examples()))\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    assert len(r.stdout.strip()) == 64
+    assert [len(line) for line in r.stdout.split()] == [64, 64]

@@ -1,6 +1,8 @@
 """The port's trainer on the CPU: the corpus banks' index stream
 against the JAX package's, the streaming loader, checkpoints with
-auto-resume, --restore_path, and the training command line.
+auto-resume, --restore_path, the scoring at each save (synchronous and
+on a thread, and the all-zero record of --eval_utts 0), and the training
+command line.
 
 The trainer runs a reduced model on a tiny seeded corpus under tmp_path.
 Two steps, a checkpoint, an auto-resumed trainer and two more steps give
@@ -14,6 +16,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -23,14 +26,18 @@ from scipy.io import wavfile
 from nhans_tpu.data.banks import BankIndexLoader as JBankIndexLoader
 from nhans_tpu.data.banks import DeviceBanks as JDeviceBanks
 from nhans_tpu_torch.cli import train as cli_train
+from nhans_tpu_torch.config import Config
+from nhans_tpu_torch.data import loader as data_loader
 from nhans_tpu_torch.data.banks import (BankIndexLoader, DeviceBanks,
                                         banks_enabled)
 from nhans_tpu_torch.data.loader import TrainLoader, bucket_length
 from nhans_tpu_torch.data.manifest import create_seeds
 from nhans_tpu_torch.models import init_variables
+from nhans_tpu_torch.tools import eval_checkpoints
 from nhans_tpu_torch.train import checkpoint as ckpt
+from nhans_tpu_torch.train import trainer as trainer_mod
 from nhans_tpu_torch.train.step import create_state
-from nhans_tpu_torch.train.trainer import EvaluationNotPorted, Trainer
+from nhans_tpu_torch.train.trainer import Trainer
 from tests.make_torch_golden import twin_configs
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -85,8 +92,29 @@ def _cfg(tmp_path, task="denoiser", **train):
                         eval_every=1000, train_monitor_every=1,
                         eval_after_training=False,
                         checkpoint_dir=str(tmp_path / "ck"),
-                        summaries_dir=str(tmp_path / "sum")), **train))
+                        summaries_dir=str(tmp_path / "sum"),
+                        wav_dump_folder=str(tmp_path / "wavs"),
+                        dump_results=""), **train))
     return cfg
+
+
+def _records(cfg):
+    path = os.path.join(cfg.train.summaries_dir, "nhans.jsonl")
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _eval_records(cfg):
+    """(step, metrics) of each evaluation record, in order."""
+    return [(r["step"], {k: v for k, v in r.items()
+                         if k not in ("step", "time")})
+            for r in _records(cfg) if "eval_loss" in r]
+
+
+# the keys of the JAX evaluator's metrics
+JAX_KEYS = {"eval_loss", "si_sdr", "si_sdr_mixed", "si_sdr_gain",
+            "si_sdr_interferer", "confused_utts", "stoi", "stoi_mixed",
+            "estoi", "estoi_mixed", "pesq"}
 
 
 @pytest.mark.parametrize("task", ["denoiser", "separator"])
@@ -175,10 +203,10 @@ def test_resume_replays_an_uninterrupted_run(tmp_path):
     for slot in ("mu", "nu"):
         for k, v in full.state.opt_state[slot].items():
             assert torch.equal(resumed.state.opt_state[slot][k], v), k
-    # the monitor wrote every step's loss; the resumed ones match
+    # the monitor wrote every step's loss; the resumed ones match (the
+    # save at step 2 also wrote an evaluation record, without a loss)
     def losses(c):
-        path = os.path.join(c.train.summaries_dir, "nhans.jsonl")
-        return {r["step"]: r["loss"] for r in map(json.loads, open(path))}
+        return {r["step"]: r["loss"] for r in _records(c) if "loss" in r}
     assert losses(cfg)[3] == losses(cfg2)[3]
     assert losses(cfg)[4] == losses(cfg2)[4]
 
@@ -236,20 +264,93 @@ def test_streaming_trainer_runs(tmp_path):
                            after["resblock1.bn1.pop_mean"])
 
 
-def test_a_run_that_would_evaluate_refuses(tmp_path):
-    cfg = _cfg(tmp_path, eval_after_training=True)
-    with pytest.raises(EvaluationNotPorted, match="ROADMAP.md"):
-        Trainer(cfg, eval_utts=4, device="cpu")
-    cfg = _cfg(tmp_path, eval_every=2)
-    with pytest.raises(EvaluationNotPorted):
-        Trainer(cfg, eval_utts=4, device="cpu")
-    Trainer(_cfg(tmp_path), eval_utts=4, device="cpu")  # never evaluates
+def test_save_and_eval_scores_the_saved_weights(tmp_path, monkeypatch):
+    """--eval_utts 2 with eval_after_training: a record with the JAX
+    evaluator's keys at the last step, which tools/eval_checkpoints
+    (Evaluator.run on the checkpoint written there) gives again; the
+    training module stays in training."""
+    cfg = _cfg(tmp_path, batches=2, eval_after_training=True)
+    tr = Trainer(cfg, eval_utts=2, device="cpu")
+    tr.train()
+    (step, got), = _eval_records(cfg)
+    assert step == 2
+    assert {"eval_loss", "si_sdr", "si_sdr_mixed", "si_sdr_gain"} <= set(got)
+    assert set(got) <= JAX_KEYS
+    assert got["eval_loss"] > 0
+    assert tr.model.training
+    assert len(os.listdir(cfg.train.wav_dump_folder)) == 2 * 5
+    monkeypatch.setattr(Config, "denoiser", staticmethod(lambda: cfg))
+    swept = eval_checkpoints.main([
+        "--task", "denoiser", "--device", "cpu", "--eval_utts", "2",
+        "--checkpoint_root", tr.ckpt.path,
+        "--speech_wav_dir", cfg.data.speech_wav_dir,
+        "--noise_wav_dir", cfg.data.noise_wav_dir,
+        "--eval_seeds", "valid", "--jsonl", str(tmp_path / "sweep.jsonl")])
+    assert [r["step"] for r in swept] == [2]
+    assert {k: v for k, v in swept[0].items() if k != "step"} == \
+        pytest.approx(got, rel=1e-12)
+    assert len(open(tmp_path / "sweep.jsonl").readlines()) == 1
+
+
+def test_async_eval_gives_the_synchronous_records(tmp_path, monkeypatch):
+    """Saves at steps 2 and 4, scored on a thread with --async_eval (while
+    steps 3 and 4 train) and in the loop without: the records agree."""
+    where = []
+    sync_eval = Trainer._eval
+
+    def eval_and_note(self, step, loader=None):
+        where.append((self.cfg.train.async_eval, step,
+                      threading.current_thread() is threading.main_thread()))
+        sync_eval(self, step, loader)
+
+    monkeypatch.setattr(Trainer, "_eval", eval_and_note)
+    # one corpus: the evaluation SNRs come from the md5 of the clean path
+    base = _cfg(tmp_path, eval_every=2)
+    records = {}
+    for mode in (False, True):
+        cfg = base.replace(train=dataclasses.replace(
+            base.train, async_eval=mode,
+            checkpoint_dir=str(tmp_path / f"ck_{mode}"),
+            summaries_dir=str(tmp_path / f"sum_{mode}"),
+            wav_dump_folder=str(tmp_path / f"wavs_{mode}")))
+        tr = Trainer(cfg, eval_utts=2, device="cpu",
+                     eval_kwargs=dict(eval_batch=2, buckets_seconds=(1.5,)))
+        tr.train()
+        assert tr._eval_thread is None  # joined at shutdown
+        records[mode] = _eval_records(cfg)
+    assert where == [(False, 2, True), (False, 4, True),
+                     (True, 2, False), (True, 4, False)]
+    assert [s for s, _ in records[False]] == [2, 4]
+    assert [s for s, _ in records[True]] == [2, 4]
+    for (_, want), (_, got) in zip(records[False], records[True]):
+        assert got == pytest.approx(want, rel=1e-12)
+
+
+def test_eval_utts_zero_writes_zeros_and_reads_no_eval_data(tmp_path,
+                                                            monkeypatch):
+    """The JAX trainer's record for no utterances at every save; unlike
+    the JAX trainer, no EvalLoader is built, so no eval manifest is read
+    and nothing is decoded for it."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("evaluation data read with --eval_utts 0")
+
+    monkeypatch.setattr(trainer_mod, "EvalLoader", refuse)
+    monkeypatch.setattr(data_loader, "_decode", refuse)
+    cfg = _cfg(tmp_path, batches=2, eval_every=1, eval_after_training=True)
+    for kind in ("speech", "noise"):
+        os.remove(os.path.join(getattr(cfg.data, f"{kind}_wav_dir"),
+                               "valid.json"))
+    Trainer(cfg, eval_utts=0, device="cpu").train()
+    zeros = {"eval_loss": 0.0, "si_sdr": 0.0, "si_sdr_mixed": 0.0,
+             "si_sdr_gain": 0.0}
+    assert _eval_records(cfg) == [(1, zeros), (2, zeros), (2, zeros)]
+    assert not os.path.exists(cfg.train.wav_dump_folder)
 
 
 @pytest.mark.parametrize("flags", [
     ["--data_axis", "2"], ["--model_axis", "2"], ["--multihost"],
     ["--dtype", "bfloat16"], ["--remat"], ["--profile_dir", "/x"],
-    ["--async_eval"], ["--freq_pad_to", "256"], ["--eval_utts", "16"]])
+    ["--freq_pad_to", "256"]])
 def test_cli_refusals_are_messages(tmp_path, capsys, flags):
     speech, noise = _corpus(tmp_path)
     with pytest.raises(SystemExit) as exit_info:
