@@ -26,7 +26,16 @@ drives the port's two main paths at full width:
   events, host scoring time, TFLOP/s, peak memory), the trainer's
   synchronous and asynchronous scoring of a checkpoint, and
   ``nhans_tpu_torch.cli.evaluate`` and ``tools/eval_checkpoints``
-  rescoring it.
+  rescoring it;
+* the training options: one full-width bfloat16 sgd step against the JAX
+  package's (tests/data/torch_golden_train_bf16.npz); step time (CUDA
+  events), TFLOP/s and peak memory in float32 and bfloat16 with sgd and
+  Adam, with and without --remat (whose step must equal the plain one)
+  and with --freq_pad_to 256; serving with NHANS_FREQ_PAD=256 against the
+  native geometry, with its RTF; and ``nhans_tpu_torch.cli.train --dtype
+  bfloat16 --remat --profile_dir`` for 21 steps, whose trace must name the
+  kernel's launches, whose checkpoint is scored in bfloat16 and whose wavs
+  the native decoder (csrc/nhans_native.cpp, built with g++) read.
 
 Any failed check raises, and the script exits non-zero without its result
 line.  Without a CUDA card, or without the rest of the repository, it
@@ -54,8 +63,9 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the tensor
-# cores, and device memory
+# cores, dense bfloat16 on them, and device memory
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 # The least work of the spectrogram per frame, with an FFT: 2.5 N log2 N
 # operations for a real 400-point FFT (half the 5 N log2 N of a complex
@@ -89,6 +99,32 @@ TRAIN_DELTA_RTOL = 1e-3
 # the loss of the first step after an auto-resume against the
 # uninterrupted run's (cuDNN's backward sums in another order each run)
 RESUME_RTOL = 1e-4
+# one full-width bfloat16 sgd step on the card against the JAX package's
+# bfloat16 step (tests/data/torch_golden_train_bf16.npz). bfloat16 keeps 8
+# significant bits, and the step's own rounding noise exceeds how far it
+# lies from the float32 step. The file records three distances of the JAX
+# step: gap/<key> to its float32 step, spread/<key> under a 1e-6 relative
+# perturbation of the weights (the most over 4 draws), and strict/<key> to
+# the same step compiled to round every bfloat16 value the program names
+# (XLA on a CPU keeps some intermediates in float32 by default; the port
+# rounds where the program says). In loss the spread exceeds the gap
+# (1.6e-3 against 4.1e-4), and at the last BatchNorm strict moves
+# pop_variance by 4.5e-2 against a gap of 9.9e-3: the port on a CPU lies
+# 4.5e-2 away there, as far as the JAX step lies from itself under the
+# other rounding. So loss, gradient norm, each update and the last
+# BatchNorm's statistics are held to BF16_SPREAD_X times the largest of
+# the three; what tells bfloat16 from float32 is the first BatchNorm's
+# statistics (the first convolution's output, where roundings do not mix:
+# 1e-6 absolute against a 2.5e-6 gap, the port on a CPU 4.8e-7) and the
+# dtype of every convolution's operands (all bfloat16).
+BF16_SPREAD_X = 4.0
+BF16_FIRST_BN_ATOL = 1e-6
+# biases whose exact gradient is zero (a BatchNorm takes the shift out):
+# their updates are rounding noise, compared by nothing
+NOISE_BIASES = ("conv2.b", "transform.b", "proj_a.b", "proj_b.b")
+# timed full-width steps a run (after 2 warm ones), and the padded width
+STEP_RUNS = 6
+FREQ_PAD = 256
 # evaluation metrics (loss, dB, STOI, ESTOI, PESQ, counts) on the card
 # against the plain spectrogram, the JAX package's golden pass (CPU), the
 # trainer's other pass and cli.evaluate: |diff| <= SNR_RTOL x max(|value|,
@@ -153,9 +189,20 @@ def write_corpus(root, rng):
 
 @contextmanager
 def plain_spectrogram(stft_cuda):
-    """Serve with the plain spectrogram on the card, for comparison."""
+    """Serve with the plain spectrogram on the card, for comparison: taken
+    in float64 and returned in float32.  The float32 plain version misses
+    float64 by up to 4e-2 in log-magnitude where a bin's magnitude comes
+    within a few 1e-5 of zero (phase 3), which moves the loss of a window
+    that holds such a bin by more than the evaluation's bar; the kernel
+    stays within a few 1e-4 of float64 there."""
     kernel = stft_cuda.log_spectrogram_kernel
-    stft_cuda.log_spectrogram_kernel = stft_cuda.log_spectrogram_plain
+
+    def plain64(x, with_reim=False):
+        out = stft_cuda.log_spectrogram_plain(x.double(), with_reim)
+        return (tuple(t.float() for t in out) if with_reim
+                else out.float())
+
+    stft_cuda.log_spectrogram_kernel = plain64
     try:
         yield
     finally:
@@ -252,7 +299,8 @@ def main() -> int:
     from nhans_tpu_torch.ops import _build, stft_cuda
     from nhans_tpu_torch.tools.devtime import device_ms, sleep_cycles_per_ms
     from tests.make_torch_golden import (DENOISER_NPZ, GOLDEN, GOLDEN_EVAL,
-                                         GOLDEN_TRAIN, SEPARATOR_NPZ,
+                                         GOLDEN_TRAIN, GOLDEN_TRAIN_BF16,
+                                         SEPARATOR_NPZ,
                                          TRAIN_LAYERS, TRAIN_STATS,
                                          eval_digest, golden_eval_examples,
                                          golden_inputs, golden_train_inputs,
@@ -604,7 +652,7 @@ def main() -> int:
     from nhans_tpu_torch.cli import train as cli_train
     from nhans_tpu_torch.data.banks import BankIndexLoader, DeviceBanks
     from nhans_tpu_torch.models import init_variables
-    from nhans_tpu_torch.train.step import step_generator
+    from nhans_tpu_torch.train.step import make_train_step, step_generator
 
     tmp = tempfile.mkdtemp(prefix="nhans_chip_smoke_")
     try:
@@ -886,6 +934,333 @@ def main() -> int:
         compare_metrics({k: v for k, v in swept[0].items() if k != "step"},
                         sync_rec, "tools/eval_checkpoints against the "
                         "trainer's record")
+
+        # -- 11. bfloat16: one full-width step against the JAX package ------
+        with np.load(GOLDEN_TRAIN_BF16) as z:
+            bgold = {k: z[k] for k in z.files}
+        check(str(bgold["input_sha256"]) == input_digest(
+            *golden_train_inputs().values()), "bfloat16 golden inputs")
+        conv_dtypes = set()
+
+        class ConvDtypes(torch.overrides.TorchFunctionMode):
+            def __torch_function__(self, func, types, args=(), kwargs=None):
+                if func is torch.nn.functional.conv2d:
+                    conv_dtypes.update(a.dtype for a in args[:3]
+                                       if isinstance(a, torch.Tensor))
+                return func(*args, **(kwargs or {}))
+
+        with ConvDtypes():
+            got = port_train_golden("cuda", bgold, "bfloat16")
+        check(conv_dtypes == {torch.bfloat16},
+              f"bfloat16 step convolutions ran in {conv_dtypes}")
+        errs = {"loss": abs(got["loss"] - float(bgold["loss"]))
+                / float(bgold["loss"]),
+                "grad_norm": abs(got["grad_norm"] - float(bgold["grad_norm"]))
+                / float(bgold["grad_norm"])}
+        for path in TRAIN_LAYERS:
+            want = bgold[f"delta/{path}"]
+            errs[f"delta/{path}"] = float(
+                np.abs(got[f"delta/{path}"] - want).max() / np.abs(want).max())
+        for path in TRAIN_STATS:
+            for name in ("pop_mean", "pop_variance"):
+                key = f"stats/{path}/{name}"
+                errs[key] = float(np.abs(got[key] - bgold[key]).max())
+        for key, err in errs.items():
+            bar = (BF16_FIRST_BN_ATOL if key.startswith(
+                f"stats/{TRAIN_STATS[0]}/") else BF16_SPREAD_X * max(
+                    float(bgold[f"{d}/{key}"])
+                    for d in ("gap", "spread", "strict")))
+            check(err <= bar, f"bfloat16 golden {key}: {err:.3g} > {bar:.3g}")
+        say("[11 bf16 golden] convolutions in bfloat16; loss "
+            f"{got['loss']:.6f} (JAX {float(bgold['loss']):.6f}); against "
+            "the JAX bfloat16 step (its gap to its float32 step, spread "
+            "under a 1e-6 weight perturbation, strict rounding): "
+            + ", ".join(f"{k} {v:.3g} (" + ", ".join(
+                f"{float(bgold[f'{d}/{k}']):.3g}"
+                for d in ("gap", "spread", "strict")) + ")"
+                for k, v in errs.items()))
+
+        # -- 12. step time and memory: float32 and bfloat16, sgd and Adam,
+        # remat, the padded tower -------------------------------------------
+        from nhans_tpu_torch.train.step import (create_state, make_tx,
+                                                state_of)
+
+        tbase = Config.denoiser()
+        tbase = tbase.replace(data=dataclasses.replace(
+            tbase.data, speech_wav_dir=corpus[0], noise_wav_dir=corpus[1]))
+        dbanks = DeviceBanks(tbase, dev)
+        check(dbanks.decoder == "native", "the native wav decoder did not "
+              "build")
+        idx_loader = BankIndexLoader(dbanks, 16)
+        idxs = [{k: torch.from_numpy(v).to(dev) for k, v in
+                 next(idx_loader).items()} for _ in range(STEP_RUNS)]
+
+        def step_run(name, alg="sgd", steps=STEP_RUNS, flops=False, **model):
+            """(ms per step by CUDA events after 2 warm steps, peak GiB,
+            kernel launches, FLOPs a step or 0, the state's change over
+            every step) of full-width banked steps from the seeded init."""
+            cfg = tbase.replace(
+                model=dataclasses.replace(tbase.model, **model),
+                train=dataclasses.replace(tbase.train, alg=alg))
+            g = torch.Generator()
+            g.manual_seed(0)
+            model_, state, tx = create_state(cfg, g, dev)
+            init = {k: v.clone() for k, v in model_.state_dict().items()}
+            step_fn = make_train_step(cfg, model_, tx, banked=True)
+            for i in range(2):
+                step_fn(state, dbanks.banks, idxs[i], step_generator(0, i))
+            n_flops = 0
+            if flops:
+                with FlopCounterMode(display=False) as counter:
+                    step_fn(state, dbanks.banks, idxs[1],
+                            step_generator(0, 1))
+                n_flops = counter.get_total_flops()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            stft_cuda.log_spectrogram_kernel.launches = 0
+            ev = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(steps + 1)]
+            ev[0].record()
+            for i in range(steps):
+                step_fn(state, dbanks.banks, idxs[i], step_generator(0, i))
+                ev[i + 1].record()
+            torch.cuda.synchronize()
+            ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(steps)]
+            launches = stft_cuda.log_spectrogram_kernel.launches
+            check(launches == 4 * steps, f"{name}: {launches} kernel "
+                  f"launches in {steps} steps")
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            change = {k: v - init[k] for k, v in model_.state_dict().items()
+                      if v.is_floating_point()}
+            return float(np.median(ms)), peak, launches, n_flops, change
+
+        step_times = {}
+        for alg in ("sgd", "adam"):
+            for dtype in ("float32", "bfloat16", "bfloat16", "float32"):
+                name = f"{dtype} {alg}"
+                ms, peak, launches, n_flops, _ = step_run(
+                    name, alg, flops=name not in step_times,
+                    compute_dtype=dtype)
+                rec = step_times.setdefault(name, {"ms": [], "flops": n_flops})
+                rec["ms"].append(ms)
+                rec.update(peak=peak, launches=launches)
+        for name, rec in step_times.items():
+            peak_flops = (PEAK_BF16_FLOPS if "bfloat16" in name
+                          else PEAK_FP32_FLOPS)
+            rate = rec["flops"] / np.mean(rec["ms"]) / 1e9
+            say(f"[12 step] {name}, full width ({STEP_RUNS} steps x2, "
+                f"median ms by CUDA events): "
+                + " and ".join(f"{v:.1f}" for v in rec["ms"])
+                + f" ms; {rec['flops'] / 1e12:.3f} TFLOP a step, "
+                f"{rate:.2f} TFLOP/s, {100 * rate * 1e12 / peak_flops:.2f} % "
+                f"of {peak_flops / 1e12:.0f} TFLOP/s; peak memory "
+                f"{rec['peak']:.2f} GiB; {rec['launches']} kernel launches; "
+                f"on {smi}")
+
+        def worst_update(got_, want_, skip=()):
+            """The largest max |diff| over max |delta| of any tensor but
+            ``skip``, the largest max |diff| of any population statistic,
+            and the tensor of the first."""
+            upd, stats, at = 0.0, 0.0, "none"
+            for key, want in want_.items():
+                if key.endswith(skip):
+                    continue
+                diff = float((got_[key] - want).abs().max())
+                if "pop_" in key:
+                    stats = max(stats, diff)
+                elif diff / max(float(want.abs().max()), 1e-30) > upd:
+                    upd = diff / max(float(want.abs().max()), 1e-30)
+                    at = key
+            return upd, stats, at
+
+        # remat, timed and measured from the seeded init over 8 steps
+        runs = {}
+        for remat in (False, True, True, False):
+            ms, peak, _, _, change = step_run(f"remat={remat}", remat=remat)
+            runs.setdefault(remat, dict(ms=[], peak=peak, change=[]))
+            runs[remat]["ms"].append(ms)
+            runs[remat]["change"].append(change)
+        a, b = runs[False], runs[True]
+        floor8 = worst_update(a["change"][1], a["change"][0], NOISE_BIASES)
+        remat8 = worst_update(b["change"][0], a["change"][0], NOISE_BIASES)
+        del runs
+
+        # remat against the plain step: one full-width step from the
+        # shipped weights, where every layer's gradient is live (the
+        # seeded init zeroes last_dense, the Inject projections and the
+        # positional MLPs' last layers, so one step from it moves nothing
+        # below last_dense), with cuDNN's deterministic algorithms: the
+        # plain step twice (their difference is the floor), then remat
+        def shipped_step(remat):
+            cfg = tbase.replace(model=dataclasses.replace(tbase.model,
+                                                          remat=remat))
+            model_ = build_model(cfg)
+            model_.load_state_dict(load_npz(DENOISER_NPZ))
+            model_.to(dev)
+            tx = make_tx(cfg)
+            state = state_of(model_, tx)
+            init = {k: v.clone() for k, v in model_.state_dict().items()
+                    if v.is_floating_point()}
+            step_fn = make_train_step(cfg, model_, tx, banked=True)
+            loss = float(step_fn(state, dbanks.banks, idxs[0],
+                                 step_generator(0, 0))["loss"])
+            return loss, {k: v - init[k] for k, v in
+                          model_.state_dict().items() if k in init}
+
+        torch.backends.cudnn.deterministic = True
+        try:
+            (l0, c0), (l1, c1), (lr_, cr) = (
+                shipped_step(False), shipped_step(False), shipped_step(True))
+        finally:
+            torch.backends.cudnn.deterministic = False
+        # every layer moves but the positional MLPs, which see a single
+        # position where a block's stride leaves one (their BatchNorms then
+        # output a constant and pass no gradient), and the noise biases
+        live = [k for k, v in c0.items() if "pop_" not in k
+                and v.abs().max() > 0]
+        dead = [k for k, v in c0.items() if "pop_" not in k
+                and k not in live and not k.endswith(NOISE_BIASES)
+                and ".temb." not in k and ".femb." not in k]
+        check(not dead, f"remat: updates with no gradient: {dead}")
+        floor1 = worst_update(c1, c0)
+        rel = abs(lr_ - l0) / l0
+        check(rel <= RESUME_RTOL, f"remat loss: rel {rel}")
+        worst = {"update": 0.0, "statistics": 0.0}
+        for key, want in c0.items():
+            got_ = cr[key]
+            if "pop_" in key:
+                check(torch.allclose(got_, want, atol=1e-4, rtol=1e-3),
+                      f"remat statistics {key}")
+                worst["statistics"] = max(worst["statistics"], float(
+                    (got_ - want).abs().max()))
+            else:
+                err = float((got_ - want).abs().max()
+                            / max(float(want.abs().max()), 1e-30))
+                check(err <= TRAIN_DELTA_RTOL, f"remat update {key}: {err}")
+                worst["update"] = max(worst["update"], err)
+        n_compared = len(c0)
+        del c0, c1, cr
+        say(f"[12 remat] float32 sgd, one step from the shipped weights "
+            f"with cuDNN deterministic, all {n_compared} tensors "
+            f"compared ({len(live)} updates live): loss rel diff {rel:.2g}, updates within "
+            f"{worst['update']:.3g} of their largest |delta|, statistics "
+            f"within {worst['statistics']:.3g} (plain against plain: "
+            f"{floor1[0]:.3g}, {floor1[1]:.3g}). After 8 steps from the "
+            f"seeded init, cuDNN free to choose: plain against plain "
+            f"{floor8[0]:.3g} ({floor8[2]}), {floor8[1]:.3g}; remat against "
+            f"plain {remat8[0]:.3g} ({remat8[2]}), {remat8[1]:.3g}. Step "
+            + " and ".join(f"{v:.1f}" for v in a["ms"])
+            + f" ms, peak {a['peak']:.2f} GiB without; "
+            + " and ".join(f"{v:.1f}" for v in b["ms"])
+            + f" ms, peak {b['peak']:.2f} GiB with --remat; on {smi}")
+
+        # the padded tower's step against the native geometry
+        pad_ms = {}
+        for pad in (0, FREQ_PAD, FREQ_PAD, 0):
+            ms, peak, _, _, _ = step_run(f"freq_pad_to={pad}",
+                                            freq_pad_to=pad)
+            pad_ms.setdefault(pad, []).append(ms)
+        say(f"[12 freq_pad] float32 sgd step: native "
+            + " and ".join(f"{v:.1f}" for v in pad_ms[0])
+            + f" ms, --freq_pad_to {FREQ_PAD} "
+            + " and ".join(f"{v:.1f}" for v in pad_ms[FREQ_PAD])
+            + f" ms; on {smi}")
+        del dbanks
+
+        # -- 13. serving with NHANS_FREQ_PAD=256 --------------------------------
+        pcfg = Config.denoiser()
+        pden = load_enhancer(pcfg.replace(model=dataclasses.replace(
+            pcfg.model, freq_pad_to=FREQ_PAD)), DENOISER_NPZ, device="cuda")
+        padded = pden.enhance_batch(mixed, [pos] * 3, [neg] * 3)
+        for i in range(len(seconds)):
+            compare({k: v[i] for k, v in padded.items()},
+                    {k: v[i] for k, v in out.items()},
+                    f"[13 serving] NHANS_FREQ_PAD={FREQ_PAD} vs native, "
+                    f"utterance {i}")
+        walls = {0: [], FREQ_PAD: []}
+        for enh, pad in ((den, 0), (pden, FREQ_PAD), (pden, FREQ_PAD),
+                         (den, 0)):
+            enh._ctx_cache.clear()
+            enh.enhance_batch(mixed, [pos] * 3, [neg] * 3)  # contexts cached
+            t0 = time.perf_counter()
+            enh.enhance_batch(mixed, [pos] * 3, [neg] * 3)
+            walls[pad].append(time.perf_counter() - t0)
+        say(f"  warm batch of {len(seconds)} ({audio:.1f} s of audio): native "
+            + " and ".join(f"{w:.3f} s (RTF {audio / w:.1f}x)"
+                           for w in walls[0])
+            + f", padded " + " and ".join(f"{w:.3f} s (RTF {audio / w:.1f}x)"
+                                          for w in walls[FREQ_PAD])
+            + f"; on {smi}")
+        with tempfile.TemporaryDirectory() as ptmp:
+            wavfile.write(os.path.join(ptmp, "in.wav"), SR,
+                          np.rint(mixed[1]).astype(np.int16))
+            wavfile.write(os.path.join(ptmp, "neg.wav"), SR,
+                          np.rint(neg).astype(np.int16))
+            r = subprocess.run(
+                [sys.executable, "-m", "nhans_tpu_torch.cli.denoiser",
+                 "--checkpoint", DENOISER_NPZ, "--input",
+                 os.path.join(ptmp, "in.wav"), "--neg",
+                 os.path.join(ptmp, "neg.wav"), "--pos", "", "--output",
+                 os.path.join(ptmp, "out.wav")], cwd=REPO,
+                capture_output=True, text=True, timeout=600,
+                env=dict(os.environ, NHANS_FREQ_PAD=str(FREQ_PAD)))
+            check(r.returncode == 0, f"padded denoiser CLI failed:\n{r.stderr}")
+            want = den.enhance(mixed[1], np.zeros(SR), neg)
+            wav = wavfile.read(os.path.join(ptmp, "out.wav"))[1]
+            err = float(np.abs(wav - want["denoised"]).max())
+            check(err <= WAVE_ATOL, f"padded CLI output: {err}")
+        say(f"  python -m nhans_tpu_torch.cli.denoiser with NHANS_FREQ_PAD="
+            f"{FREQ_PAD}: max |diff| {err:.3g} from the native Enhancer")
+        del pden
+
+        # -- 14. cli.train with every option --------------------------------------
+        prof = f"{tmp}/profile"
+        stft_cuda.log_spectrogram_kernel.launches = 0
+        args = ["--speech_wav_dir", corpus[0], "--noise_wav_dir", corpus[1],
+                "--checkpoint_dir", f"{tmp}/ck_options", "--summaries_dir",
+                f"{tmp}/sum_options", "--dtype", "bfloat16", "--remat",
+                "--profile_dir", prof, "--batches", "21", "--eval_utts", "2",
+                "--wav_dump_folder", "", "--dump_results", "",
+                "--train_monitor_every", "1"]
+        trainer = cli_train.build_trainer(args)
+        torch.cuda.synchronize()
+        stft_cuda.log_spectrogram_kernel.launches = 0
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(trainer.decoder == "native", f"cli.train decoded with "
+              f"{trainer.decoder}, not the native binding")
+        check(trainer.evaluator.model.last_dense.dtype == torch.bfloat16,
+              "the checkpoint was not scored in bfloat16")
+        launches = stft_cuda.log_spectrogram_kernel.launches
+        check(launches == 4 * 21 + 4, f"options run: {launches} launches")
+        bf16_launches = launches - 4  # the 21 steps, not the evaluation
+        with open(trainer.trace_path) as f:
+            events = json.load(f)["traceEvents"]
+        kernel_events = [e for e in events
+                         if "log_spectrogram_fft" in e.get("name", "")
+                         and e.get("cat") == "kernel"]
+        check(len(kernel_events) == 40, f"trace: {len(kernel_events)} "
+              "spectrogram kernel launches in steps 10 to 19, expected 40")
+        with open(f"{tmp}/sum_options/nhans.jsonl") as f:
+            recs = [json.loads(line) for line in f]
+        evals = [r for r in recs if "eval_loss" in r]
+        check(len(evals) == 1 and all(np.isfinite(v) for k, v in
+                                      evals[0].items() if k != "time"),
+              "options run: one finite evaluation record")
+        losses = [r["loss"] for r in recs if "loss" in r]
+        check(len(losses) == 21 and np.all(np.isfinite(losses)),
+              "options run: 21 finite losses")
+        say(f"[14 cli options] --dtype bfloat16 --remat --profile_dir: 21 "
+            f"steps and a bfloat16 evaluation in {wall:.1f} s, decoder "
+            f"{trainer.decoder}; trace {os.path.basename(trainer.trace_path)}"
+            f" with {len(kernel_events)} launches of log_spectrogram_fft "
+            f"(of {len(events)} events); eval "
+            + ", ".join(f"{k} {v:.4f}" for k, v in evals[0].items()
+                        if k not in ("step", "time"))
+            + f"; on {smi}")
+        del trainer
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -896,6 +1271,8 @@ def main() -> int:
              [(8, 32240), (4, 160000)]),
             ("training", (16, 163600, False), banked_launches,
              [(16, 163600), (16, 64000)]),
+            ("training, bfloat16", (16, 163600, False), bf16_launches,
+             [(16, 163600)]),
             ("evaluation", (8, 256000, True), eval_launches,
              [(8, 256000)])):
         t = timings[key]
@@ -910,6 +1287,11 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             "shape": list(key[:2]), "with_reim": key[2]})
+        if path == "training, bfloat16":
+            kernels[-1]["note"] = (
+                "launches: the 21 steps of cli.train --dtype bfloat16 "
+                "(phase 14); times: phase 4 at the same shape, as the "
+                "kernel is float32 in every compute dtype")
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(smi)
     say(json.dumps({"kernels": kernels}))

@@ -33,22 +33,19 @@ def _sidecar(path: str, tag: str) -> str:
     return f"{base}_{tag}{ext or '.wav'}"
 
 
-def _check_freq_pad(num_features: int) -> None:
-    """NHANS_FREQ_PAD above ``num_features`` selects the JAX package's
-    lane-padded tower, which the port does not have yet: refuse it, and a
-    value that is not an integer, with a message, not a traceback.  Values
-    up to ``num_features`` serve the native geometry, as they do in the
-    JAX package."""
+def _freq_pad(num_features: int) -> int:
+    """``NHANS_FREQ_PAD``: a value above ``num_features`` serves with the
+    lane-padded main tower (``ModelConfig.freq_pad_to``), whose outputs
+    are those of the native geometry; up to ``num_features`` (or unset)
+    the native geometry, as in the JAX package.  A value that is not an
+    integer is refused with a message, not a traceback."""
     val = os.environ.get("NHANS_FREQ_PAD", "").strip()
     try:
         pad = int(val or 0)
     except ValueError:
         sys.exit(f"NHANS_FREQ_PAD={val!r} is not an integer; unset it or "
                  "set it to 0")
-    if pad > num_features:
-        sys.exit(f"NHANS_FREQ_PAD={val!r}: the lane-padded tower geometry "
-                 "(freq_pad_to) is not ported to nhans_tpu_torch yet (see "
-                 "ROADMAP.md, Queue 1); unset NHANS_FREQ_PAD or set it to 0")
+    return pad if pad > num_features else 0
 
 
 def load_enhancer(cfg: Config, checkpoint: str, window_chunk: int = 2048,
@@ -99,12 +96,14 @@ def run(task: str, argv=None) -> None:
     add_inference_flags(parser, task=task)
     args = parser.parse_args(argv)
     base = Config.denoiser() if task == "denoiser" else Config.separator()
-    _check_freq_pad(base.model.num_features)
+    pad = _freq_pad(base.model.num_features)
     if not args.checkpoint:
         sys.exit(f"--checkpoint is required: a flat .npz of weights, e.g. "
                  f"docs/quality/{task}_q5_swa.npz")
-    cfg = base.replace(audio=dataclasses.replace(
-        base.audio, recon_residual_cap=args.recon_residual_cap))
+    cfg = base.replace(
+        audio=dataclasses.replace(
+            base.audio, recon_residual_cap=args.recon_residual_cap),
+        model=dataclasses.replace(base.model, freq_pad_to=pad))
     fs = args.Fs
 
     try:

@@ -10,10 +10,15 @@ checkpoint (every ``--eval_every`` steps and at the end) is scored on
 ``--eval_utts`` utterances of the ``--eval_seeds`` split, synchronously
 or, with ``--async_eval``, on a thread while training goes on;
 ``--eval_utts 0`` writes an all-zero record and reads no eval manifest.
-The JAX package's TPU options (``--data_axis``/``--model_axis`` above 1,
-``--multihost``, ``--dtype bfloat16``, ``--remat``, ``--profile_dir``)
-and ``--freq_pad_to`` other than 0 are accepted by the parser and refused
-with a message: those parts are not ported yet (ROADMAP.md).
+``--dtype bfloat16`` computes the model in bfloat16 (parameters,
+optimizer state, BatchNorm statistics, spectrograms and the loss stay
+float32, and checkpoints are float32), ``--remat`` recomputes each
+main-tower block in the backward pass, ``--freq_pad_to 256`` carries the
+main tower's frequency axis on 256 columns, and ``--profile_dir DIR``
+writes a torch.profiler trace of steps 10 to 20 into DIR.  The JAX
+package's multi-device options (``--data_axis``/``--model_axis`` above 1,
+``--multihost``) are accepted by the parser and refused with a message:
+they are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -45,12 +50,15 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--eval_utts", type=int, default=16,
                    help="utterances per evaluation pass (0: save "
                         "without scoring, an all-zero record)")
-    p.add_argument("--profile_dir", default="", help="not ported")
+    p.add_argument("--profile_dir", default="",
+                   help="write a torch.profiler trace of steps 10-20 here")
     p.add_argument("--dtype", choices=("float32", "bfloat16"),
-                   default="float32", help="model compute dtype (only "
-                                           "float32 is ported)")
+                   default="float32",
+                   help="model compute dtype (bfloat16 for the tensor "
+                        "cores; float32 for strict parity)")
     p.add_argument("--remat", action="store_true", default=False,
-                   help="not ported")
+                   help="recompute main-tower blocks in the backward pass "
+                        "(activation memory for FLOPs)")
     p.add_argument("--async_eval", action=argparse.BooleanOptionalAction,
                    default=False,
                    help="score the periodic checkpoints on a thread (and "
@@ -66,17 +74,12 @@ def _refusal(args) -> str:
         (args.data_axis > 1, f"--data_axis {args.data_axis}"),
         (args.model_axis > 1, f"--model_axis {args.model_axis}"),
         (args.multihost, "--multihost"),
-        (args.dtype != "float32", f"--dtype {args.dtype}"),
-        (args.remat, "--remat"),
-        (bool(args.profile_dir), "--profile_dir"),
-        (args.freq_pad_to != 0, f"--freq_pad_to {args.freq_pad_to}"),
     ]
     names = [name for hit, name in refused if hit]
     if not names:
         return ""
     return (f"{', '.join(names)}: not ported to nhans_tpu_torch yet (see "
-            "ROADMAP.md, Queue 1); the port trains on one device in "
-            "float32 with the native tower geometry")
+            "ROADMAP.md, Queue 1); the port trains on one device")
 
 
 def build_trainer(argv=None):

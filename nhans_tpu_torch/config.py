@@ -3,10 +3,9 @@
 A copy of ``nhans_tpu/config.py``: the audio front end, the model
 architecture, the two task configurations, the input pipeline and the
 trainer, with the command-line flags that fill them.  Fields
-that select TPU machinery (the STFT implementation, the compute dtype,
-rematerialisation, the mesh axes, profiling) are left out: the training
-command line refuses them.  The port keeps its own
-copy so that it never imports the JAX package.
+that select TPU machinery (the STFT implementation, the mesh axes) are
+left out: the training command line refuses a mesh.  The port keeps its
+own copy so that it never imports the JAX package.
 """
 
 from __future__ import annotations
@@ -88,9 +87,18 @@ class ModelConfig:
     # Frequency-weighted MSE: linspace(2 -> 1) over the bins.
     loss_weight_hi: float = 2.0
     loss_weight_lo: float = 1.0
-    # Lane-padded tower geometry of the JAX package; the port supports
-    # only the native geometry (0) so far.
+    # Compute dtype of the convolutions, matmuls and activations:
+    # "float32" or "bfloat16".  Parameters, BatchNorm statistics, the
+    # spectrogram, the residual and the loss stay float32.
+    compute_dtype: str = "float32"
+    # Carry the main tower's frequency axis on this many columns (0 =
+    # the native 201): explicit SAME pads from the true width and
+    # dead-column masks keep serving outputs those of the native tower;
+    # training takes its BatchNorm moments over the padded width.
     freq_pad_to: int = 0
+    # Recompute each main-tower block in the backward pass instead of
+    # keeping its activations (memory for FLOPs).
+    remat: bool = False
     # Training-time Gaussian jitter on both context embeddings, relative
     # to their RMS (0 = off).  Serving never applies it.
     ctx_embed_noise: float = 0.0
@@ -186,6 +194,8 @@ class TrainConfig:
     lr_min_frac: float = 0.1       # final lr as a fraction of --lr
     # score the periodic checkpoints on a thread while training goes on
     async_eval: bool = False
+    # write a torch.profiler trace of steps 10 to 20 here ("" = off)
+    profile_dir: str = ""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -333,9 +343,8 @@ def add_training_flags(parser) -> None:
                              "context embeddings, relative to their "
                              "RMS (0 disables)")
     parser.add_argument("--freq_pad_to", type=int, default=0,
-                        help="lane-padded frequency axis of the JAX "
-                             "package's tower (0 = native 201; only 0 "
-                             "is ported)")
+                        help="carry the main tower's frequency axis "
+                             "on this many columns (0 = native 201)")
     parser.add_argument("--mom", type=float, default=0.0)
     parser.add_argument("--w_std", type=float, default=0.01)
     parser.add_argument("--b_init", type=float, default=0.0)
@@ -361,6 +370,8 @@ def config_from_args(args, task: str = "denoiser") -> Config:
         bn_decay=getattr(args, "bn_decay", 0.95),
         ctx_embed_noise=getattr(args, "ctx_embed_noise", 0.0),
         freq_pad_to=getattr(args, "freq_pad_to", 0),
+        compute_dtype=getattr(args, "dtype", "float32"),
+        remat=getattr(args, "remat", False),
     )
     data = DataConfig(
         speech_wav_dir=getattr(args, "speech_wav_dir", "./speech_wav_dir/"),
@@ -397,6 +408,7 @@ def config_from_args(args, task: str = "denoiser") -> Config:
         wav_dump_folder=getattr(args, "wav_dump_folder", "./wav_dump/"),
         eval_before_training=getattr(args, "eval_before_training", False),
         eval_after_training=getattr(args, "eval_after_training", True),
+        profile_dir=getattr(args, "profile_dir", ""),
     )
     return Config(audio=audio, model=model, task=task_cfg, data=data,
                   train=train)

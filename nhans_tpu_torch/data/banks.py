@@ -23,7 +23,7 @@ import torch
 
 from nhans_tpu_torch.config import Config
 from nhans_tpu_torch.data.manifest import load_seeds
-from nhans_tpu_torch.utils import wavio
+from nhans_tpu_torch.utils import native, wavio
 
 _SPK_RE = re.compile(r"^spk([A-Za-z0-9]+)[_.]")
 
@@ -69,9 +69,16 @@ def corpus_bytes(paths: List[str]) -> int:
     return sum(os.path.getsize(p) for p in paths)
 
 
-def _decode_all(paths: List[str], max_samples: int) -> tuple:
+def _decode_all(paths: List[str], max_samples: int, sample_rate: int,
+                use_native: bool) -> tuple:
     """Every file in one int16 [N, longest] array, lengths [N] (capped at
-    ``max_samples``) and whole-file peaks [N]."""
+    ``max_samples``) and whole-file peaks [N]: on the native decoder's
+    threads with ``use_native``, else one file at a time with numpy."""
+    if use_native:
+        buf, lens, peaks = native.load_batch_i16(list(paths), max_samples,
+                                                 sample_rate, num_threads=4)
+        return (np.ascontiguousarray(buf[:, :int(lens.max())]),
+                lens, peaks)
     rows, lens, peaks = [], [], []
     for p in paths:
         x = np.asarray(wavio.read_wav_strict(p), np.float32)
@@ -98,7 +105,9 @@ def _pad_frames(a: np.ndarray, frame_length: int, frame_step: int):
 class DeviceBanks:
     """The decoded corpus on ``device``.  ``banks`` holds "speech",
     "speech_len", "speech_peak", "noise", "noise_len", "noise_peak"; for
-    the separator the noise entries are the speech tensors themselves."""
+    the separator the noise entries are the speech tensors themselves.
+    ``decoder`` says which decoder read the wavs: "native" (the threaded
+    binding, ``utils/native.py``) where it builds, else "numpy"."""
 
     def __init__(self, cfg: Config, device, split: str = "train"):
         self.cfg = cfg
@@ -117,10 +126,15 @@ class DeviceBanks:
                     torch.from_numpy(lens).to(device),
                     torch.from_numpy(peaks).to(device))
 
-        sp, sp_len, sp_pk = place(_decode_all(self.speech_paths, L))
+        use_native = native.available()
+        self.decoder = "native" if use_native else "numpy"
+        fs = cfg.audio.sample_rate
+        sp, sp_len, sp_pk = place(_decode_all(self.speech_paths, L, fs,
+                                              use_native))
         banks = {"speech": sp, "speech_len": sp_len, "speech_peak": sp_pk}
         if self.two_noise:
-            ns, ns_len, ns_pk = place(_decode_all(self.noise_paths, L))
+            ns, ns_len, ns_pk = place(_decode_all(self.noise_paths, L, fs,
+                                                  use_native))
         else:
             ns, ns_len, ns_pk = sp, sp_len, sp_pk
         banks.update(noise=ns, noise_len=ns_len, noise_peak=ns_pk)

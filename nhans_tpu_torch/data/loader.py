@@ -2,8 +2,10 @@
 decode wavs into fixed-shape int16 buffers), the deterministic
 evaluation loader, and a prefetch thread that moves batches to the
 device.  The port of ``nhans_tpu/data/loader.py::TrainLoader``,
-``EvalLoader`` and ``prefetch_to_device``, for one process; decoding goes
-through the port's ``utils/wavio.py``.
+``EvalLoader`` and ``prefetch_to_device``, for one process.  The training
+loader decodes on the threads of the native binding (``utils/native.py``)
+where it builds, as the JAX package does, else with ``utils/wavio.py``;
+the evaluation loader with ``utils/wavio.py``.
 
 Mixing, spectrograms and crops happen on the device
 (``data/pipeline.py``).  A worker's exception is raised in the consumer,
@@ -25,7 +27,7 @@ from nhans_tpu_torch.config import Config
 from nhans_tpu_torch.data.banks import build_disjoint_table
 from nhans_tpu_torch.data.manifest import load_seeds
 from nhans_tpu_torch.dsp.mixing import snr_index_from_path
-from nhans_tpu_torch.utils import wavio
+from nhans_tpu_torch.utils import native, wavio
 
 
 def _decode(path: str, max_samples: int) -> tuple:
@@ -56,7 +58,8 @@ class TrainLoader:
     with ``transfer_dtype="float32"``), un-normalised, the valid lengths
     and the whole-file peaks [B, 3].  For the separator ``noise_a`` is
     another speech utterance, from another real voice where the corpus
-    has two or more, and ``noise_b`` is zeros."""
+    has two or more, and ``noise_b`` is zeros.  ``decoder``: "native" or
+    "numpy", the decoder the workers use."""
 
     def __init__(self, cfg: Config, batch_utts: int, split: str = "train",
                  seed: Optional[int] = None,
@@ -81,6 +84,7 @@ class TrainLoader:
         self._cache_bytes = 0
         self._cache_budget = cfg.data.decode_cache_mb * (1 << 20)
         self._cache_lock = threading.Lock()
+        self.decoder = "native" if native.available() else "numpy"
         base_seed = cfg.data.seed if seed is None else seed
         self._threads = []
         for w in range(num_workers or cfg.data.num_workers):
@@ -106,11 +110,21 @@ class TrainLoader:
     def _records(self, paths, wire) -> Dict[str, tuple]:
         """Decoded records of ``paths``, from the cache where they are."""
         local = {}
-        for p in sorted({p for p in paths if p not in self._cache}):
-            x, n, pk = _decode(p, self.L)
-            if wire == np.int16:
-                x = np.rint(x).astype(np.int16)
-            local[p] = (np.ascontiguousarray(x[:n]), n, pk)
+        missing = sorted({p for p in paths if p not in self._cache})
+        if missing and self.decoder == "native":
+            load = (native.load_batch_i16 if wire == np.int16
+                    else native.load_batch)
+            buf, lens, pks = load(missing, self.L,
+                                  self.cfg.audio.sample_rate, num_threads=2)
+            for j, p in enumerate(missing):
+                n = int(lens[j])
+                local[p] = (buf[j, :n].copy(), n, float(pks[j]))
+        else:
+            for p in missing:
+                x, n, pk = _decode(p, self.L)
+                if wire == np.int16:
+                    x = np.rint(x).astype(np.int16)
+                local[p] = (np.ascontiguousarray(x[:n]), n, pk)
         if self._cache_budget and local:
             with self._cache_lock:
                 for p, rec in local.items():

@@ -6,11 +6,18 @@ onto them name for name (``compat/weights.py``).  Convolutions run NCHW
 with OIHW weights; ``Dense`` keeps flax's ``[in, out]`` weight.
 ``BatchNorm`` follows the module's ``training`` flag: batch moments and
 the population EMA in training, the population statistics otherwise.
+
+Each layer takes a compute ``dtype`` (float32 or bfloat16) and casts where
+the flax layers do: ``Dense`` and ``Conv`` cast their input and their
+float32 weight and bias to it, ``BatchNorm`` takes its moments and
+normalises in float32 and returns ``dtype``.  Parameters and population
+statistics stay float32, so gradients and optimizer state do too.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import contextlib
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -30,15 +37,17 @@ class Dense(nn.Module):
     ``b_init`` are what ``models.init_variables`` fills them with."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
-                 w_std: float = 0.01, b_init: float = 0.0):
+                 w_std: float = 0.01, b_init: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.w_std, self.b_init = w_std, b_init
+        self.dtype = dtype
         self.w = nn.Parameter(torch.zeros(in_features, features))
         self.b = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.matmul(x, self.w)
-        return y + self.b if self.b is not None else y
+        y = torch.matmul(x.to(self.dtype), self.w.to(self.dtype))
+        return y + self.b.to(self.dtype) if self.b is not None else y
 
 
 class Conv(nn.Module):
@@ -50,9 +59,11 @@ class Conv(nn.Module):
     def __init__(self, in_features: int, features: int,
                  kernel_size: Sequence[int], strides: Sequence[int] = (1, 1),
                  padding: str = "SAME", use_bias: bool = True,
-                 w_std: float = 0.01, b_init: float = 0.0):
+                 w_std: float = 0.01, b_init: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.w_std, self.b_init = w_std, b_init
+        self.dtype = dtype
         if padding not in ("SAME", "VALID"):
             raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
         self.kernel_size = tuple(kernel_size)
@@ -62,14 +73,21 @@ class Conv(nn.Module):
                                           *self.kernel_size))
         self.b = nn.Parameter(torch.zeros(features)) if use_bias else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                freq_size: Optional[int] = None) -> torch.Tensor:
+        """``freq_size``: the true width of a lane-padded frequency axis;
+        SAME then pads it as TF would pad that width (its low pad depends
+        on the size), so that the output grid is the native one."""
+        dt = self.dtype
+        x = x.to(dt)
         if self.padding == "SAME":
             (kh, kw), (sh, sw) = self.kernel_size, self.strides
             tl, th, _ = same_pads(x.shape[2], kh, sh)
-            fl, fh, _ = same_pads(x.shape[3], kw, sw)
+            fl, fh, _ = same_pads(freq_size or x.shape[3], kw, sw)
             if tl or th or fl or fh:
                 x = F.pad(x, (fl, fh, tl, th))
-        return F.conv2d(x, self.w, self.b, stride=self.strides)
+        b = None if self.b is None else self.b.to(dt)
+        return F.conv2d(x, self.w.to(dt), b, stride=self.strides)
 
 
 def trunc_normal_(w: torch.Tensor, std: float,
@@ -101,13 +119,18 @@ class BatchNorm(nn.Module):
     ``pop = decay * pop + (1 - decay) * batch``, from the detached
     moments.  ``torch.nn.BatchNorm2d`` keeps the unbiased variance there
     and cannot stand in.  Otherwise (the default, as flax's
-    ``train=False``) the population statistics are used."""
+    ``train=False``) the population statistics are used.  The
+    normalisation is in float32 and the output in ``dtype``.
+    ``update_stats`` False (``frozen_stats``) keeps the population
+    statistics where they are in training."""
 
     def __init__(self, features: int, eps: float = 1e-3,
-                 decay: float = 0.95):
+                 decay: float = 0.95, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.eps = eps
         self.decay = decay
+        self.dtype = dtype
+        self.update_stats = True
         self.beta = nn.Parameter(torch.zeros(features))
         self.gamma = nn.Parameter(torch.ones(features))
         self.register_buffer("pop_mean", torch.zeros(features))
@@ -116,18 +139,36 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = (-1,) + (1,) * (x.ndim - 2)
+        x32 = x.to(torch.float32)
         if self.training:
             dims = (0,) + tuple(range(2, x.ndim))
-            x32 = x.to(torch.float32)
             mean = torch.mean(x32, dim=dims)
             var = torch.mean(x32 * x32, dim=dims) - mean * mean
-            with torch.no_grad():
-                d = self.decay
-                self.pop_mean.mul_(d).add_((1 - d) * mean.detach())
-                self.pop_variance.mul_(d).add_((1 - d) * var.detach())
+            if self.update_stats:
+                with torch.no_grad():
+                    d = self.decay
+                    self.pop_mean.mul_(d).add_((1 - d) * mean.detach())
+                    self.pop_variance.mul_(d).add_((1 - d) * var.detach())
         else:
             mean, var = self.pop_mean, self.pop_variance
         inv = torch.rsqrt(var + self.eps) * self.gamma
-        return ((x - mean.view(shape)) * inv.view(shape)
-                + self.beta.view(shape))
+        y = (x32 - mean.view(shape)) * inv.view(shape) + self.beta.view(shape)
+        return y.to(self.dtype)
+
+
+@contextlib.contextmanager
+def frozen_stats(module: nn.Module):
+    """Every ``BatchNorm`` under ``module`` leaves its population
+    statistics alone while inside: a block recomputed for the backward
+    pass must not move them a second time, as flax's ``remat`` keeps the
+    first forward's update only."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    saved = [bn.update_stats for bn in bns]
+    for bn in bns:
+        bn.update_stats = False
+    try:
+        yield
+    finally:
+        for bn, flag in zip(bns, saved):
+            bn.update_stats = flag
 

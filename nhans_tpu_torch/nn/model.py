@@ -17,19 +17,27 @@ the checkpoint's keys with ``/`` read as ``.``.  ``model.train()`` gives
 the training forward (batch moments and the population EMA in every
 BatchNorm, and the optional context-embedding jitter); ``model.eval()``
 the serving one.
+
+``ModelConfig`` selects the compute dtype (``compute_dtype``: the layers
+cast where the flax modules do, and the residual comes back float32), the
+lane-padded geometry of the main tower (``freq_pad_to``) and
+rematerialisation of its blocks in the backward pass (``remat``).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from nhans_tpu_torch.config import ModelConfig
-from nhans_tpu_torch.nn.blocks import BatchNorm, Conv, Dense, same_pads
+from nhans_tpu_torch.nn.blocks import (BatchNorm, Conv, Dense, frozen_stats,
+                                       same_pads)
 from nhans_tpu_torch.utils.device import to_device
 
 
@@ -38,16 +46,20 @@ class PositionalMLP(nn.Module):
     BN + ReLU between the layers.  -> [n, out_dim]"""
 
     def __init__(self, out_dim: int, hidden: int = 50, bn_eps: float = 1e-3,
-                 bn_decay: float = 0.95, w_std: float = 0.01):
+                 bn_decay: float = 0.95, w_std: float = 0.01,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.dense1 = Dense(1, hidden, use_bias=False, w_std=w_std)
-        self.bn1 = BatchNorm(hidden, bn_eps, bn_decay)
-        self.dense2 = Dense(hidden, hidden, use_bias=False, w_std=w_std)
-        self.bn2 = BatchNorm(hidden, bn_eps, bn_decay)
-        self.dense3 = Dense(hidden, out_dim, use_bias=False, w_std=0.0)
+        self.dense1 = Dense(1, hidden, use_bias=False, w_std=w_std,
+                            dtype=dtype)
+        self.bn1 = BatchNorm(hidden, bn_eps, bn_decay, dtype)
+        self.dense2 = Dense(hidden, hidden, use_bias=False, w_std=w_std,
+                            dtype=dtype)
+        self.bn2 = BatchNorm(hidden, bn_eps, bn_decay, dtype)
+        self.dense3 = Dense(hidden, out_dim, use_bias=False, w_std=0.0,
+                            dtype=dtype)
 
     def forward(self, n: int, device) -> torch.Tensor:
-        x = torch.arange(n, dtype=self.dense1.w.dtype, device=device)[:, None]
+        x = torch.arange(n, dtype=torch.float32, device=device)[:, None]
         x = F.relu(self.bn1(self.dense1(x)))
         x = F.relu(self.bn2(self.dense2(x)))
         return self.dense3(x)
@@ -60,17 +72,17 @@ class ContextBlock(nn.Module):
     def __init__(self, in_features: int, features: int, kernel: Sequence[int],
                  strides: Sequence[int], bn_eps: float = 1e-3,
                  bn_decay: float = 0.95, w_std: float = 0.01,
-                 b_init: float = 0.0):
+                 b_init: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         _check_residual(in_features, features, strides)
-        p = dict(w_std=w_std, b_init=b_init)
+        p = dict(w_std=w_std, b_init=b_init, dtype=dtype)
         self.conv1 = Conv(in_features, features, kernel, strides,
                           use_bias=False, **p)
-        self.bn1 = BatchNorm(features, bn_eps, bn_decay)
+        self.bn1 = BatchNorm(features, bn_eps, bn_decay, dtype)
         self.conv2 = Conv(features, features, kernel, (1, 1), **p)
         self.transform = (Conv(in_features, features, (1, 1), strides, **p)
                           if in_features != features else None)
-        self.bn_out = BatchNorm(features, bn_eps, bn_decay)
+        self.bn_out = BatchNorm(features, bn_eps, bn_decay, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         path1 = F.relu(self.bn1(self.conv1(x)))
@@ -88,14 +100,16 @@ class ContextEncoder(nn.Module):
         for i, (kernel, strides, features) in enumerate(cfg.context_blocks):
             self.add_module(f"block{i + 1}", ContextBlock(
                 cin, features, kernel, strides, cfg.bn_eps, cfg.bn_decay,
-                cfg.w_std, cfg.b_init))
+                cfg.w_std, cfg.b_init, compute_dtype(cfg)))
             cin = features
 
     def forward(self, ctx: torch.Tensor) -> torch.Tensor:
         x = ctx[:, None]
         for block in self.children():
             x = block(x)
-        return torch.mean(x, dim=(2, 3))  # global average pool
+        # global average pool, summed in float32 and returned in the
+        # compute dtype, as jnp.mean does
+        return torch.mean(x, dim=(2, 3), dtype=torch.float32).to(x.dtype)
 
 
 class Inject(nn.Module):
@@ -105,12 +119,15 @@ class Inject(nn.Module):
 
     def __init__(self, features: int, embedding_dim: int = 512,
                  hidden: int = 50, bn_eps: float = 1e-3,
-                 bn_decay: float = 0.95, w_std: float = 0.01):
+                 bn_decay: float = 0.95, w_std: float = 0.01,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.proj_a = Dense(embedding_dim, features, w_std=0.0)
-        self.proj_b = Dense(embedding_dim, features, w_std=0.0)
-        self.temb = PositionalMLP(features, hidden, bn_eps, bn_decay, w_std)
-        self.femb = PositionalMLP(features, hidden, bn_eps, bn_decay, w_std)
+        self.proj_a = Dense(embedding_dim, features, w_std=0.0, dtype=dtype)
+        self.proj_b = Dense(embedding_dim, features, w_std=0.0, dtype=dtype)
+        self.temb = PositionalMLP(features, hidden, bn_eps, bn_decay, w_std,
+                                  dtype)
+        self.femb = PositionalMLP(features, hidden, bn_eps, bn_decay, w_std,
+                                  dtype)
 
     def forward(self, x: torch.Tensor, emb_a: torch.Tensor,
                 emb_b: torch.Tensor) -> torch.Tensor:
@@ -123,34 +140,65 @@ class Inject(nn.Module):
 
 class CondResBlock(nn.Module):
     """Residual conv block with conditioning injected after each of its
-    two convolutions (native geometry)."""
+    two convolutions.
+
+    ``freq_valid`` > 0 selects the lane-padded geometry
+    (``ModelConfig.freq_pad_to``): the incoming frequency axis is wider
+    than the ``freq_valid`` true bins, which the columns beyond carry as
+    zeros.  The convolutions pad as TF-SAME would at the true width, and
+    the dead columns are zeroed again after ``bn1`` and after the output
+    ReLU, so that the boundary taps read the zeros SAME padding gives.
+    In inference every BatchNorm is a per-channel affine map, so the
+    valid columns equal the native geometry's; in training the batch
+    moments include the dead columns."""
 
     def __init__(self, in_features: int, features: int, kernel: int,
                  stride: int, embedding_dim: int = 512, hidden: int = 50,
                  bn_eps: float = 1e-3, bn_decay: float = 0.95,
-                 w_std: float = 0.01, b_init: float = 0.0):
+                 w_std: float = 0.01, b_init: float = 0.0,
+                 dtype: torch.dtype = torch.float32, freq_valid: int = 0):
         super().__init__()
         k, s = kernel, stride
         _check_residual(in_features, features, (s, s))
-        p = dict(w_std=w_std, b_init=b_init)
-        inj = (features, embedding_dim, hidden, bn_eps, bn_decay, w_std)
+        p = dict(w_std=w_std, b_init=b_init, dtype=dtype)
+        inj = (features, embedding_dim, hidden, bn_eps, bn_decay, w_std,
+               dtype)
+        self.freq_valid = freq_valid
+        self.freq_out = same_pads(freq_valid, k, s)[2] if freq_valid else 0
         self.conv1 = Conv(in_features, features, (k, k), (s, s),
                           use_bias=False, **p)
         self.inject1 = Inject(*inj)
-        self.bn1 = BatchNorm(features, bn_eps, bn_decay)
+        self.bn1 = BatchNorm(features, bn_eps, bn_decay, dtype)
         self.conv2 = Conv(features, features, (k, k), (1, 1), **p)
         self.inject2 = Inject(*inj)
         self.transform = (Conv(in_features, features, (1, 1), (s, s), **p)
                           if in_features != features else None)
-        self.bn_out = BatchNorm(features, bn_eps, bn_decay)
+        self.bn_out = BatchNorm(features, bn_eps, bn_decay, dtype)
+
+    def _mask(self, y: torch.Tensor) -> torch.Tensor:
+        """``y`` with the columns past the true width zeroed."""
+        if not self.freq_valid:
+            return y
+        keep = torch.arange(y.shape[3], device=y.device) < self.freq_out
+        return y * keep.to(y.dtype)
 
     def forward(self, x: torch.Tensor, emb_a: torch.Tensor,
                 emb_b: torch.Tensor) -> torch.Tensor:
-        path1 = self.inject1(self.conv1(x), emb_a, emb_b)
-        path1 = F.relu(self.bn1(path1))
-        path1 = self.inject2(self.conv2(path1), emb_a, emb_b)
+        fv, fv1 = self.freq_valid or None, self.freq_out or None
+        path1 = self.inject1(self.conv1(x, fv), emb_a, emb_b)
+        path1 = self._mask(F.relu(self.bn1(path1)))
+        path1 = self.inject2(self.conv2(path1, fv1), emb_a, emb_b)
         path2 = x if self.transform is None else self.transform(x)
-        return F.relu(self.bn_out(path1 + path2))
+        return self._mask(F.relu(self.bn_out(path1 + path2)))
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The torch dtype of ``cfg.compute_dtype``."""
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    if cfg.compute_dtype not in dtypes:
+        raise ValueError(f"compute_dtype must be one of {sorted(dtypes)}, "
+                         f"got {cfg.compute_dtype!r}")
+    return dtypes[cfg.compute_dtype]
 
 
 def _check_residual(in_features: int, features: int,
@@ -173,26 +221,30 @@ class NHANSNet(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.freq_pad_to:
-            raise NotImplementedError(
-                "freq_pad_to != 0 (the lane-padded tower geometry) is not "
-                "ported yet; see ROADMAP.md, Queue 1")
         self.cfg = cfg
+        dtype = compute_dtype(cfg)
         self.embedding = ContextEncoder(cfg)
         emb_dim = cfg.context_blocks[-1][2]  # width of the context tower
+        # lane padding: the true width enters the blocks padded to
+        # freq_pad_to columns, and each block carries its true width on
+        self.freq_pad = (cfg.freq_pad_to
+                         if cfg.freq_pad_to > cfg.num_features else 0)
         cin, t, f = 1, cfg.window_frames, cfg.num_features
         for i, (k, s, c) in enumerate(cfg.main_blocks):
             self.add_module(f"resblock{i + 1}", CondResBlock(
                 cin, c, k, s, emb_dim, cfg.pos_embed_hidden, cfg.bn_eps,
-                cfg.bn_decay, cfg.w_std, cfg.b_init))
+                cfg.bn_decay, cfg.w_std, cfg.b_init, dtype,
+                freq_valid=f if self.freq_pad else 0))
             cin, t, f = c, same_pads(t, k, s)[2], same_pads(f, k, s)[2]
         self.num_blocks = len(cfg.main_blocks)
+        self.freq_out = f
         self.last_conv = Conv(cin, cfg.embedding_dim, (t, 1),
                               padding="VALID", use_bias=False,
-                              w_std=cfg.w_std)
-        self.last_bn = BatchNorm(cfg.embedding_dim, cfg.bn_eps, cfg.bn_decay)
+                              w_std=cfg.w_std, dtype=dtype)
+        self.last_bn = BatchNorm(cfg.embedding_dim, cfg.bn_eps, cfg.bn_decay,
+                                 dtype)
         self.last_dense = Dense(f * cfg.embedding_dim, cfg.num_features,
-                                w_std=0.0)
+                                w_std=0.0, dtype=dtype)
         self.eval()  # serving unless put in training, as flax's train=False
 
     def forward(self, mixed: Optional[torch.Tensor],
@@ -222,13 +274,28 @@ class NHANSNet(nn.Module):
         if mixed is None:
             return emb_a, emb_b
         out = mixed[:, None]
+        if self.freq_pad:
+            out = F.pad(out, (0, self.freq_pad - out.shape[3]))
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for i in range(self.num_blocks):
-            out = getattr(self, f"resblock{i + 1}")(out, emb_a, emb_b)
+            block = getattr(self, f"resblock{i + 1}")
+            if remat:
+                # the backward pass runs the block again: its BatchNorms
+                # keep the first forward's update of their statistics
+                out = checkpoint(block, out, emb_a, emb_b,
+                                 use_reentrant=False,
+                                 context_fn=lambda b=block: (
+                                     contextlib.nullcontext(),
+                                     frozen_stats(b)))
+            else:
+                out = block(out, emb_a, emb_b)
+        if self.freq_pad:
+            out = out[..., :self.freq_out]
         out = F.relu(self.last_bn(self.last_conv(out)))   # [B, C, 1, F']
         # flatten as NHWC [B, 1, F', C] -> [B, F' * C], frequency-major,
         # which is the row order of last_dense/w
         out = out.permute(0, 2, 3, 1).reshape(out.shape[0], -1)
-        return self.last_dense(out)
+        return self.last_dense(out).to(torch.float32)
 
     def enhance_frames(self, mixed: torch.Tensor, ctx_a: torch.Tensor,
                        ctx_b: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,11 @@
 """Where one warm full-width training step spends its time on the card.
 
     python -m nhans_tpu_torch.tools.profile_training [--alg sgd adam]
-        [--steps 8]
+        [--dtype float32 bfloat16] [--steps 8]
 
 builds the denoiser at full width with its seeded init, banks a seeded
 synthetic corpus on the card (8 utterances of 10.2 s, 6 noises), and for
-each optimizer named takes three banked steps of 16 utterances x 4 crops
+each compute dtype and optimizer named takes three banked steps of 16 utterances x 4 crops
 to warm up, ``--steps`` back to back timed by the host's clock from one
 synchronisation to the next, then two under ``torch.profiler``.  It
 prints per step: the time of the back-to-back steps and how long the
@@ -56,6 +56,8 @@ def _banks(cfg: Config, rng, device):
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--alg", nargs="+", default=["sgd", "adam"])
+    p.add_argument("--dtype", nargs="+", default=["float32"],
+                   choices=("float32", "bfloat16"))
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--steps", type=int, default=8)
     p.add_argument("--top", type=int, default=12)
@@ -67,8 +69,10 @@ def main(argv=None) -> None:
     rng = np.random.default_rng(args.seed)
     banks = _banks(base, rng, dev)
     B = base.train.train_mb // base.data.slices_per_step
-    for alg in args.alg:
-        cfg = base.replace(train=dataclasses.replace(base.train, alg=alg))
+    for dtype, alg in ((d, a) for d in args.dtype for a in args.alg):
+        cfg = base.replace(
+            model=dataclasses.replace(base.model, compute_dtype=dtype),
+            train=dataclasses.replace(base.train, alg=alg))
         g = torch.Generator()
         g.manual_seed(args.seed)
         model = init_variables(cfg, g, dev)
@@ -106,7 +110,7 @@ def main(argv=None) -> None:
             wall_prof = (time.perf_counter() - t0) / steps
         s = kernel_summary(prof, steps)
         busy = s["busy_ms"] / (1e3 * wall)
-        print(f"{alg}: one warm full-width step ({B} utterances x "
+        print(f"{dtype} {alg}: one warm full-width step ({B} utterances x "
               f"{cfg.data.slices_per_step} crops): {1e3 * wall:.1f} ms over "
               f"{args.steps} back-to-back steps (the host enqueued a step in "
               f"{1e3 * enqueued:.1f} ms); summed kernel time "

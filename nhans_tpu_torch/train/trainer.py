@@ -24,10 +24,14 @@
   shutdown.  With ``eval_utts=0`` the record gets the JAX trainer's
   all-zero ``eval_loss``/``si_sdr``/``si_sdr_mixed``/``si_sdr_gain``,
   and no eval manifest is read.
+* With ``profile_dir``, a ``torch.profiler`` trace (CPU and, on a card,
+  CUDA activities) of steps 10 to 20 is written there as Chrome-trace
+  JSON; a run that ends before step 20 writes what it traced.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from typing import Optional
@@ -76,6 +80,8 @@ class Trainer:
         self.writer = MetricsWriter(t.summaries_dir, t.model_name)
         self.monitor = Monitor(t.train_monitor_every, self.writer)
         self.tstep = 0
+        self.trace_path: Optional[str] = None  # the profiler's trace
+        self.decoder: Optional[str] = None  # "native" or "numpy", in train
         # utterances a step: train_mb // slices_per_step, at least 1
         self.batch_utts = max(t.train_mb // cfg.data.slices_per_step, 1)
 
@@ -194,8 +200,11 @@ class Trainer:
                   f"{dbanks.nbytes >> 20} MB on {self.device}")
             loader = BankIndexLoader(dbanks, self.batch_utts,
                                      start_step=self.tstep)
+            self.decoder = dbanks.decoder
         else:
             loader = TrainLoader(cfg, self.batch_utts)
+            self.decoder = loader.decoder
+        print(f"wav decoder: {self.decoder}")
         stream = prefetch_to_device(loader, self.device)
         timed = self.device.type == "cuda"
 
@@ -204,9 +213,15 @@ class Trainer:
 
         # (metrics, input wait, step events): read at monitor boundaries
         pending = []
+        profiler = None
         self._heartbeat = Heartbeat(name="trainer").start()
         try:
             while self.tstep < t.batches:
+                if t.profile_dir and self.tstep == 10 and profiler is None:
+                    profiler = self._start_profiler()
+                if profiler is not None and self.tstep >= 20:
+                    self._stop_profiler(profiler)
+                    profiler = None
                 self._beat(f"train step {self.tstep}")
                 events = None
                 if timed:
@@ -239,14 +254,42 @@ class Trainer:
                     pending = []
                 if self.tstep % t.eval_every == 0:
                     self.save_and_eval(async_eval=t.async_eval)
+            if profiler is not None:  # the run ended before step 20
+                self._stop_profiler(profiler)
+                profiler = None
             if t.eval_after_training:
                 self.save_and_eval()
         finally:
             self._beat("shutdown: join the evaluation thread")
             try:
+                if profiler is not None:
+                    self._stop_profiler(profiler)
                 self._join_eval()
             finally:
                 stream.close()
                 loader.close()
                 self.writer.close()
                 self._heartbeat.stop()
+
+    def _start_profiler(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        profiler = profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profiler(self, profiler) -> None:
+        """Stop ``profiler`` once the card has finished the traced steps
+        and write its Chrome trace under ``profile_dir``."""
+        d = self.cfg.train.profile_dir
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        os.makedirs(d, exist_ok=True)
+        self.trace_path = os.path.join(d, f"{self.cfg.train.model_name}_"
+                                          f"steps_10_{self.tstep}.json")
+        profiler.export_chrome_trace(self.trace_path)
+        print(f"profiler trace written to {d}")

@@ -3,6 +3,7 @@ them where JAX is not installed (the machine with the GPU).
 
     python tests/make_torch_golden.py          # serving
     python tests/make_torch_golden.py train    # one training step
+    python tests/make_torch_golden.py train_bf16  # the same in bfloat16
     python tests/make_torch_golden.py eval     # an evaluation pass
 
 The first runs ``nhans_tpu``'s ``Enhancer(out_wire="float32")`` with the
@@ -19,7 +20,17 @@ from the same weights on one seeded utterance x 2 crops and writes
 random draws, the loss, the gradient norm, the update of a few layers
 (``delta/<flax path>``) and two BatchNorms' new statistics
 (``stats/<flax path>``).  ``tests/test_torch_train_golden.py`` and
-``chip_smoke.py`` hold the port to it.
+``chip_smoke.py`` hold the port to it.  ``train_bf16`` takes the same
+step on the same inputs and draws with ``compute_dtype="bfloat16"`` and
+writes ``tests/data/torch_golden_train_bf16.npz`` with the same keys
+and three distances (``train_gap``): ``gap/<key>``, how far that step
+lies from the float32 one; ``spread/<key>``, the most it moves when the
+weights are perturbed by 1e-6 relative, over ``SPREAD_SEEDS`` draws; and
+``strict/<key>``, how far it lies from the same step compiled to round
+every bfloat16 value the program names (XLA's
+``xla_allow_excess_precision`` off; by default XLA on a CPU keeps some
+intermediates in float32).  The bars of the port's bfloat16 step
+(``tests/test_torch_train_golden.py``, ``chip_smoke.py``) come from these.
 
 The third runs the JAX package's ``Evaluator`` at full width with the
 same weights on two seeded utterances of 2.45 and 2.5 s (one group of
@@ -50,6 +61,8 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(REPO, "tests", "data", "torch_golden_denoiser.npz")
 GOLDEN_TRAIN = os.path.join(REPO, "tests", "data", "torch_golden_train.npz")
+GOLDEN_TRAIN_BF16 = os.path.join(REPO, "tests", "data",
+                                 "torch_golden_train_bf16.npz")
 GOLDEN_EVAL = os.path.join(REPO, "tests", "data", "torch_golden_eval.npz")
 DENOISER_NPZ = os.path.join(REPO, "docs", "quality", "denoiser_q5_swa.npz")
 SEPARATOR_NPZ = os.path.join(REPO, "docs", "quality", "separator_q5_swa.npz")
@@ -82,6 +95,8 @@ def golden_inputs(seed: int = SEED):
 TRAIN_SEED = 20250
 TRAIN_SLICES = 2
 TRAIN_LR = 1e-3
+# perturbed bfloat16 steps whose largest distance is the golden's spread
+SPREAD_SEEDS = 4
 TRAIN_LAYERS = ("embedding/block1/conv1/w", "resblock1/conv1/w",
                 "resblock8/bn_out/beta", "last_dense/b")
 TRAIN_STATS = ("embedding/block1/bn1", "last_bn")
@@ -188,9 +203,14 @@ def jax_golden_run() -> dict:
     return enh.enhance(*golden_inputs())
 
 
-def jax_train_golden() -> dict:
+def jax_train_golden(dtype: str = "float32", perturb: float = 0.0,
+                     perturb_seed: int = TRAIN_SEED,
+                     strict: bool = False) -> dict:
     """One sgd step of the JAX package at full width (CPU) from the
-    shipped denoiser weights on ``golden_train_inputs``."""
+    shipped denoiser weights on ``golden_train_inputs``, computed in
+    ``dtype``; with ``perturb``, from the weights each times
+    (1 + perturb x a standard normal draw seeded by ``perturb_seed``);
+    with ``strict``, compiled with ``xla_allow_excess_precision`` off."""
     import jax
     import jax.numpy as jnp
 
@@ -198,10 +218,15 @@ def jax_train_golden() -> dict:
     from nhans_tpu.train.optim import make_optimizer
     from nhans_tpu.train.step import TrainState, make_train_step
 
-    jcfg, _ = twin_configs("denoiser",
+    jcfg, _ = twin_configs("denoiser", model=dict(compute_dtype=dtype),
                            data=dict(slices_per_step=TRAIN_SLICES),
                            train=dict(alg="sgd", lr=TRAIN_LR))
     variables = jax_variables(DENOISER_NPZ)
+    if perturb:
+        rng = np.random.default_rng(perturb_seed)
+        variables["params"] = jax.tree_util.tree_map(
+            lambda w: (w * (1 + perturb * rng.standard_normal(w.shape))
+                       ).astype(np.float32), variables["params"])
     tx = make_optimizer("sgd", TRAIN_LR)
     state = TrainState(step=jnp.zeros((), jnp.int32),
                        params=variables["params"],
@@ -210,8 +235,11 @@ def jax_train_golden() -> dict:
     step = make_train_step(jcfg, build_model(jcfg), tx, donate=False)
     batch = golden_train_inputs()
     key = jax.random.PRNGKey(TRAIN_SEED)
-    new, metrics = step(state, {k: jnp.asarray(v) for k, v in batch.items()},
-                        key)
+    args = (state, {k: jnp.asarray(v) for k, v in batch.items()}, key)
+    if strict:
+        step = step.lower(*args).compile(
+            {"xla_allow_excess_precision": False})
+    new, metrics = step(*args)
 
     def at(tree, path):
         for p in path.split("/"):
@@ -234,10 +262,32 @@ def jax_train_golden() -> dict:
     return out
 
 
-def port_train_golden(device="cpu", golden=None) -> dict:
+def train_gap(ref: dict, other: dict, prefix: str) -> dict:
+    """How far the step ``other`` lies from the step ``ref``:
+    ``<prefix>/loss`` and ``<prefix>/grad_norm`` relative,
+    ``<prefix>/delta/<path>`` the max |difference| of the updates over
+    ``ref``'s largest |delta|, ``<prefix>/stats/<path>/<name>`` the max
+    |difference| of the BatchNorm statistics."""
+    out = {f"{prefix}/{k}": np.float64(abs(float(other[k]) - float(ref[k]))
+                                       / abs(float(ref[k])))
+           for k in ("loss", "grad_norm")}
+    for path in TRAIN_LAYERS:
+        want = np.asarray(ref[f"delta/{path}"], np.float64)
+        out[f"{prefix}/delta/{path}"] = np.float64(
+            np.abs(np.asarray(other[f"delta/{path}"]) - want).max()
+            / np.abs(want).max())
+    for path in TRAIN_STATS:
+        for name in ("pop_mean", "pop_variance"):
+            key = f"stats/{path}/{name}"
+            out[f"{prefix}/{key}"] = np.float64(
+                np.abs(np.asarray(other[key], np.float64) - ref[key]).max())
+    return out
+
+
+def port_train_golden(device="cpu", golden=None, dtype="float32") -> dict:
     """The port's train step on the training golden's inputs and draws,
-    from the same weights, on ``device``: the file's keys, computed by the
-    port.  Needs torch only."""
+    from the same weights, on ``device``, computed in ``dtype``: the
+    file's keys, computed by the port.  Needs torch only."""
     import torch
 
     from nhans_tpu_torch.compat.weights import load_npz, to_flax
@@ -251,6 +301,7 @@ def port_train_golden(device="cpu", golden=None) -> dict:
             golden = {k: z[k] for k in z.files}
     cfg = Config.denoiser()
     cfg = cfg.replace(
+        model=dataclasses.replace(cfg.model, compute_dtype=dtype),
         data=dataclasses.replace(cfg.data, slices_per_step=TRAIN_SLICES),
         train=dataclasses.replace(cfg.train, alg="sgd", lr=TRAIN_LR))
     model = build_model(cfg)
@@ -391,6 +442,20 @@ def main() -> None:
     if sys.argv[1:] == ["train"]:
         np.savez_compressed(GOLDEN_TRAIN, **jax_train_golden())
         print(f"wrote {GOLDEN_TRAIN} ({os.path.getsize(GOLDEN_TRAIN)} bytes)")
+        return
+    if sys.argv[1:] == ["train_bf16"]:
+        out = jax_train_golden("bfloat16")
+        out.update(train_gap(jax_train_golden(), out, "gap"))
+        spreads = [train_gap(out, jax_train_golden("bfloat16", 1e-6,
+                                                   TRAIN_SEED + i), "spread")
+                   for i in range(SPREAD_SEEDS)]
+        out.update({k: np.float64(max(d[k] for d in spreads))
+                    for k in spreads[0]})
+        out.update(train_gap(out, jax_train_golden("bfloat16", strict=True),
+                             "strict"))
+        np.savez_compressed(GOLDEN_TRAIN_BF16, **out)
+        print(f"wrote {GOLDEN_TRAIN_BF16} "
+              f"({os.path.getsize(GOLDEN_TRAIN_BF16)} bytes)")
         return
     if sys.argv[1:] == ["eval"]:
         np.savez_compressed(GOLDEN_EVAL, **jax_eval_golden())

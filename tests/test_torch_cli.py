@@ -71,7 +71,6 @@ def test_help_has_reference_flags(task):
 
 
 @pytest.mark.parametrize("args,env,needle", [
-    ([], {"NHANS_FREQ_PAD": "256"}, "NHANS_FREQ_PAD"),
     ([], {"NHANS_FREQ_PAD": "abc"}, "NHANS_FREQ_PAD"),
     (["--checkpoint", ""], {}, "--checkpoint is required"),
 ])

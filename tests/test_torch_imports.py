@@ -38,13 +38,13 @@ def test_every_module_imports_with_jax_blocked():
     # config, 11 subpackages, dsp/{spectral,mixing},
     # ops/{_build,stft_cuda}, nn/{blocks,model}, compat/weights,
     # infer/enhance,
-    # utils/{device,wavio,tb_events,watchdog,scoring,pesq_np},
+    # utils/{device,wavio,tb_events,watchdog,scoring,pesq_np,native},
     # cli/{_app,denoiser,separator,train,seeds,evaluate},
     # data/{manifest,banks,loader,pipeline},
     # train/{optim,step,checkpoint,metrics,trainer,evaluate},
     # tools/{devtime,profile_serving,profile_training,spectrogram_anatomy,
     #        eval_checkpoints}
-    assert int(r.stdout.strip()) == 47
+    assert int(r.stdout.strip()) == 48
 
 
 @pytest.mark.parametrize("path", PORT_SOURCES)

@@ -162,8 +162,6 @@ def test_residual_with_strided_identity_is_refused():
     with pytest.raises(ValueError):
         NHANSNet(ModelConfig(**dict(_SMALL, main_blocks=((4, 1, 8),
                                                          (3, 2, 8)))))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NHANSNet(ModelConfig(freq_pad_to=256))
 
 
 @pytest.mark.parametrize("npz", [DENOISER_NPZ, SEPARATOR_NPZ])
