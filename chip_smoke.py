@@ -35,11 +35,24 @@ drives the port's two main paths at full width:
   native geometry, with its RTF; and ``nhans_tpu_torch.cli.train --dtype
   bfloat16 --remat --profile_dir`` for 21 steps, whose trace must name the
   kernel's launches, whose checkpoint is scored in bfloat16 and whose wavs
-  the native decoder (csrc/nhans_native.cpp, built with g++) read.
+  the native decoder (csrc/nhans_native.cpp, built with g++) read;
+* several ranks (phase 15): the mesh step in an NCCL world of one against
+  the training golden; two ranks sharing the card over gloo (NCCL refuses
+  two ranks on one device), each spawned as a process of its own with a
+  file:// store: the banked full-width data-parallel step against the
+  1-rank step and against the JAX package's make_mesh(data=2) step
+  (tests/data/torch_golden_train_dp.npz), per-rank step times, launches
+  and peak memory, data=1 x model=2 against the 1-rank steps, and
+  ``cli.train`` on both ranks with a checkpoint and an auto-resume; the
+  Enhancer split over two replicas; with two cards or more, the same over
+  NCCL and the denoiser command line with --mesh auto.
 
 Any failed check raises, and the script exits non-zero without its result
 line.  Without a CUDA card, or without the rest of the repository, it
 exits non-zero at once.
+
+``python3 chip_smoke.py --cards`` runs phase 15 (f) alone on a machine
+with two cards or more.
 
 The last lines are the card's name and power limit as nvidia-smi gives
 them, one JSON object with the kernel's numbers on each path, and
@@ -124,6 +137,9 @@ BF16_FIRST_BN_ATOL = 1e-6
 NOISE_BIASES = ("conv2.b", "transform.b", "proj_a.b", "proj_b.b")
 # timed full-width steps a run (after 2 warm ones), and the padded width
 STEP_RUNS = 6
+# phase 15: the data-parallel global batch (utterances) and its timed steps
+DP_UTTS = 16
+STEPS_DP = 3
 FREQ_PAD = 256
 # evaluation metrics (loss, dB, STOI, ESTOI, PESQ, counts) on the card
 # against the plain spectrogram, the JAX package's golden pass (CPU), the
@@ -261,6 +277,440 @@ def compare_dumps(got_dir, want_dir, what):
         + ", ".join(f"{k} {v:.3g}" for k, v in sorted(worst.items())))
 
 
+def step_errors(got, want, what):
+    """A step's record (``port_train_golden``'s keys) against another at
+    phase 8's bars; a line that says how far it lay."""
+    from tests.make_torch_golden import TRAIN_LAYERS, TRAIN_STATS
+
+    rel = {k: abs(float(got[k]) - float(want[k])) / abs(float(want[k]))
+           for k in ("loss", "grad_norm")}
+    check(rel["loss"] <= TRAIN_LOSS_RTOL, f"{what} loss: rel {rel['loss']}")
+    check(rel["grad_norm"] <= TRAIN_GNORM_RTOL,
+          f"{what} grad norm: rel {rel['grad_norm']}")
+    delta_errs = {}
+    for path in TRAIN_LAYERS:
+        w = np.asarray(want[f"delta/{path}"])
+        err = float(np.abs(got[f"delta/{path}"] - w).max() / np.abs(w).max())
+        check(err <= TRAIN_DELTA_RTOL, f"{what} update {path}: {err}")
+        delta_errs[path] = err
+    for path in TRAIN_STATS:
+        for name in ("pop_mean", "pop_variance"):
+            key = f"stats/{path}/{name}"
+            check(np.allclose(got[key], want[key], atol=1e-4, rtol=1e-3),
+                  f"{what} {key}")
+    return (f"{what}: loss {float(got['loss']):.6f} (against "
+            f"{float(want['loss']):.6f}, rel {rel['loss']:.2g}), grad norm "
+            f"{float(got['grad_norm']):.5f} (against "
+            f"{float(want['grad_norm']):.5f}, rel {rel['grad_norm']:.2g}); "
+            "updates, max |diff| / max |delta|: " + ", ".join(
+                f"{k} {v:.2g}" for k, v in delta_errs.items()))
+
+
+def step_record(model, before, metrics):
+    """``port_train_golden``'s keys of a step on ``model`` (full
+    tensors), ``before`` its flat flax parameters before the step."""
+    from nhans_tpu_torch.compat.weights import to_flax
+    from tests.make_torch_golden import TRAIN_LAYERS, TRAIN_STATS
+
+    after = to_flax(dict(model.named_parameters()), "params")
+    stats = to_flax(dict(model.named_buffers()), "stats")
+    out = {"loss": float(metrics["loss"]),
+           "grad_norm": float(metrics["grad_norm"])}
+    for path in TRAIN_LAYERS:
+        out[f"delta/{path}"] = (after[f"params/{path}"]
+                                - before[f"params/{path}"])
+    for path in TRAIN_STATS:
+        for name in ("pop_mean", "pop_variance"):
+            out[f"stats/{path}/{name}"] = stats[f"stats/{path}/{name}"]
+    return out
+
+
+def rank_phase15(rank, world, spec_path):
+    """One of phase 15's ranks (``run_ranks``), with every rank on the
+    card ``spec["device"]`` (or its own, ``cuda:{LOCAL_RANK}``, for None):
+
+    (b) the banked full-width data-parallel step from the shipped weights
+        (its record, then ``STEPS_DP`` more steps timed by CUDA events, the
+        kernel's launches, peak memory, and the gradient buffer's
+        all-reduce timed alone), and the data-parallel golden's step;
+    (d) with ``spec["model_axis"]``, two steps on data=1 x model=world;
+    (c) with ``spec["cli"]``, ``cli.train`` for 4 steps and a checkpoint,
+        then again to step 6 from its auto-resume.
+
+    Writes its results to ``<out>.<rank>.pkl``."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from nhans_tpu_torch.cli import train as cli_train
+    from nhans_tpu_torch.compat.weights import load_npz, to_flax
+    from nhans_tpu_torch.data.banks import BankIndexLoader, DeviceBanks
+    from nhans_tpu_torch.models import build_model
+    from nhans_tpu_torch.ops import stft_cuda
+    from nhans_tpu_torch.parallel.mesh import make_mesh
+    from nhans_tpu_torch.parallel.sharding_rules import (gather_full,
+                                                         model_shards,
+                                                         shard_model)
+    from nhans_tpu_torch.train.step import (make_train_step, make_tx,
+                                            state_of, step_generator)
+    from nhans_tpu_torch.utils.device import resolve_device
+    from tests.make_torch_golden import (DENOISER_NPZ, GOLDEN_TRAIN_DP,
+                                         port_train_golden)
+
+    with open(spec_path, "rb") as f:
+        spec = pickle.load(f)
+    cfg, seed = spec["cfg"], spec["seed"]
+    dev = resolve_device(spec["device"] or "cuda")
+    torch.cuda.set_device(dev)
+    out = {"device": str(dev)}
+    dbanks = DeviceBanks(cfg, dev)
+
+    def on_card(idx):
+        return {k: torch.from_numpy(v).to(dev) for k, v in idx.items()}
+
+    def shipped(mesh):
+        model = build_model(cfg)
+        model.load_state_dict(load_npz(DENOISER_NPZ))
+        model.to(dev)
+        before = to_flax(dict(model.named_parameters()), "params")
+        shard_model(model, mesh)
+        tx = make_tx(cfg)
+        return model, before, tx, state_of(model, tx)
+
+    # (b) the data-parallel step: this rank's rows of the global batch
+    mesh = make_mesh(data=world)
+    model, before, tx, state = shipped(mesh)
+    step = make_train_step(cfg, model, tx, banked=True, mesh=mesh)
+    idx = BankIndexLoader(dbanks, spec["batch_utts"],
+                          shard=(mesh.data_index, mesh.data))
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    stft_cuda.log_spectrogram_kernel.launches = 0
+    m = step(state, dbanks.banks, on_card(next(idx)), step_generator(seed, 0))
+    out["b"] = step_record(model, before, m)
+    ev = [torch.cuda.Event(enable_timing=True)
+          for _ in range(spec["steps"] + 1)]
+    ev[0].record()
+    for i in range(spec["steps"]):
+        step(state, dbanks.banks, on_card(next(idx)),
+             step_generator(seed, i + 1))
+        ev[i + 1].record()
+    torch.cuda.synchronize(dev)
+    out["launches"] = stft_cuda.log_spectrogram_kernel.launches
+    out["rows"] = spec["batch_utts"] // world
+    out["step_ms"] = [ev[i].elapsed_time(ev[i + 1])
+                      for i in range(spec["steps"])]
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    flat = torch.zeros(sum(p.numel() for p in model.parameters()),
+                       device=dev)
+    out["grad_elements"] = flat.numel()
+    allreduce_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        dist.all_reduce(flat, group=mesh.data_group)
+        torch.cuda.synchronize(dev)
+        allreduce_ms.append(1e3 * (time.perf_counter() - t0))
+    out["allreduce_ms"] = allreduce_ms
+    del model, state, step, flat
+    torch.cuda.empty_cache()
+    with np.load(GOLDEN_TRAIN_DP) as z:
+        golden = {k: z[k] for k in z.files}
+    out["dp_golden"] = port_train_golden(dev, golden, mesh=mesh)
+    torch.cuda.empty_cache()
+
+    # (d) the model axis: both ranks on the whole batch, the wide kernels
+    # split between them
+    if spec["model_axis"]:
+        tp = make_mesh(data=1, model=world)
+        model, _, tx, state = shipped(tp)
+        shards = model_shards(model)
+        out["blocks"] = {k: tuple(state.params[k].shape) for k in shards}
+        step = make_train_step(cfg, model, tx, banked=True, mesh=tp)
+        idx = BankIndexLoader(dbanks, spec["batch_utts"])
+        out["tp_loss"] = [float(step(state, dbanks.banks, on_card(next(idx)),
+                                     step_generator(seed, i))["loss"])
+                          for i in range(2)]
+        full = gather_full(dict(model.named_parameters()), shards)
+        if rank == 0:
+            out["tp_params"] = {k: v.detach().cpu().numpy()
+                                for k, v in full.items()}
+        del model, state, step, full
+        torch.cuda.empty_cache()
+    del dbanks
+    torch.cuda.empty_cache()
+
+    # (c) the training command line on every rank
+    if spec["cli"]:
+        args = spec["cli"] + ["--device", str(dev)]
+        first = cli_train.build_trainer(args + ["--batches", "4"])
+        first.train()
+        again = cli_train.build_trainer(args + ["--batches", "6"])
+        out["c"] = {"first": first.tstep, "resumed_at": again.tstep,
+                    "mesh": (again.mesh.data, again.mesh.model),
+                    "local_utts": again.local_utts}
+        again.train()
+        out["c"].update(last=again.tstep, ckpt_steps=again.ckpt.steps(),
+                        banked=again.banked)
+    with open(f"{spec['out']}.{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+
+
+def dp_reference(corpus):
+    """The 1-rank reference of phase 15 (b), (d) and (f): two banked sgd
+    steps from the shipped weights (every layer live) on the corpus, the
+    global batch of ``DP_UTTS`` utterances.  Returns (config, generator
+    seed, the first step's record, both losses, the weights after both)."""
+    import torch
+
+    from nhans_tpu_torch.compat.weights import load_npz, to_flax
+    from nhans_tpu_torch.config import Config
+    from nhans_tpu_torch.data.banks import BankIndexLoader, DeviceBanks
+    from nhans_tpu_torch.models import build_model
+    from nhans_tpu_torch.train.step import (make_train_step, make_tx,
+                                            state_of, step_generator)
+    from tests.make_torch_golden import DENOISER_NPZ
+
+    dev = torch.device("cuda", 0)
+    base = Config.denoiser()
+    cfg = base.replace(data=dataclasses.replace(
+        base.data, speech_wav_dir=corpus[0], noise_wav_dir=corpus[1]))
+    seed = cfg.data.seed + 17
+    dbanks = DeviceBanks(cfg, dev)
+    idx_loader = BankIndexLoader(dbanks, DP_UTTS)
+    model = build_model(cfg)
+    model.load_state_dict(load_npz(DENOISER_NPZ))
+    model.to(dev)
+    before = to_flax(dict(model.named_parameters()), "params")
+    tx = make_tx(cfg)
+    state = state_of(model, tx)
+    step = make_train_step(cfg, model, tx, banked=True)
+
+    def idx():
+        return {k: torch.from_numpy(v).to(dev)
+                for k, v in next(idx_loader).items()}
+
+    ref = step_record(model, before, step(state, dbanks.banks, idx(),
+                                          step_generator(seed, 0)))
+    losses = [ref["loss"], float(step(state, dbanks.banks, idx(),
+                                      step_generator(seed, 1))["loss"])]
+    params = {k: v.detach().cpu().numpy()
+              for k, v in model.named_parameters()}
+    del model, state, step, dbanks
+    torch.cuda.empty_cache()
+    return cfg, seed, ref, losses, params
+
+
+def dp_golden():
+    from tests.make_torch_golden import (GOLDEN_TRAIN_DP, golden_dp_inputs,
+                                         input_digest)
+
+    with np.load(GOLDEN_TRAIN_DP) as z:
+        gold = {k: z[k] for k in z.files}
+    check(str(gold["input_sha256"]) == input_digest(
+        *golden_dp_inputs().values()), "data-parallel golden inputs")
+    return gold
+
+
+def run_phase15_ranks(spec, backend):
+    """``rank_phase15`` on two ranks: (each rank's results, wall s)."""
+    import pickle
+
+    from tests.make_torch_golden import run_ranks
+
+    path = f"{spec['out']}.spec"
+    with open(path, "wb") as f:
+        pickle.dump(spec, f)
+    t0 = time.perf_counter()
+    run_ranks(2, "chip_smoke:rank_phase15", path, backend=backend,
+              timeout=900)
+    wall = time.perf_counter() - t0
+    res = []
+    for r in range(2):
+        with open(f"{spec['out']}.{r}.pkl", "rb") as f:
+            res.append(pickle.load(f))
+    return res, wall
+
+
+def check_data_parallel(res, tag, ref, gold, smi):
+    """Phase 15 (b)'s checks of each rank's results: its step against the
+    1-rank step and the ranks' step on the data-parallel golden, at phase
+    8's bars, and the kernel's launches; prints the times."""
+    for r, rec in enumerate(res):
+        check(rec["launches"] == 4 * (1 + STEPS_DP),
+              f"{tag} rank {r}: {rec['launches']} kernel launches in "
+              f"{1 + STEPS_DP} steps")
+        say(f"{tag} rank {r} on {rec['device']}: " + step_errors(
+            rec["b"], ref, "its step against the 1-rank step"))
+        say(f"  rank {r}: {rec['rows']} utterances x 4 crops a step, "
+            f"ms per step by CUDA events "
+            + ", ".join(f"{v:.1f}" for v in rec["step_ms"])
+            + f"; {rec['launches']} kernel launches; peak memory "
+            f"{rec['peak_gib']:.2f} GiB; all-reduce of the "
+            f"{rec['grad_elements']} float32 gradient elements alone "
+            + ", ".join(f"{v:.1f}" for v in rec["allreduce_ms"])
+            + f" ms; on {smi}")
+    say(f"{tag} " + step_errors(
+        res[0]["dp_golden"], gold, "the 2-rank step on the data-parallel "
+        "golden against the JAX make_mesh(data=2) step"))
+
+
+def check_mesh_auto(served, count):
+    """The denoiser command line with --mesh auto on ``count`` cards
+    against the 1-card Enhancer's output (phase 15 (f))."""
+    from scipy.io import wavfile
+
+    from tests.make_torch_golden import DENOISER_NPZ
+
+    den, mixed, _, neg, _ = served
+    with tempfile.TemporaryDirectory() as ftmp:
+        wavfile.write(os.path.join(ftmp, "in.wav"), SR,
+                      np.rint(mixed[1]).astype(np.int16))
+        wavfile.write(os.path.join(ftmp, "neg.wav"), SR,
+                      np.rint(neg).astype(np.int16))
+        r = subprocess.run(
+            [sys.executable, "-m", "nhans_tpu_torch.cli.denoiser",
+             "--checkpoint", DENOISER_NPZ, "--mesh", "auto", "--input",
+             os.path.join(ftmp, "in.wav"), "--neg",
+             os.path.join(ftmp, "neg.wav"), "--pos", "", "--output",
+             os.path.join(ftmp, "out.wav")], cwd=REPO,
+            capture_output=True, text=True, timeout=600)
+        check(r.returncode == 0, f"--mesh auto CLI failed:\n{r.stderr}")
+        n = 1 << (count.bit_length() - 1)
+        check(f"serving sharded over {n} devices" in r.stderr,
+              "--mesh auto did not split")
+        want = den.enhance(mixed[1], np.zeros(SR), neg)
+        err = float(np.abs(wavfile.read(os.path.join(ftmp, "out.wav"))[1]
+                           - want["denoised"]).max())
+        check(err <= WAVE_ATOL, f"--mesh auto output: {err}")
+    say(f"[15f serving] --mesh auto over {n} cards: max |diff| {err:.3g} "
+        "from the 1-card Enhancer")
+
+
+def phase15(tmp, corpus, smi, count, tgold, banked_losses, served):
+    """Phase 15: the port on several ranks, every rank on the one card.
+
+    (a) NCCL in a world of one: the golden step through the mesh step.
+    (b) Two ranks over gloo sharing cuda:0: the banked full-width step of
+        16 utterances x 4 crops, 8 a rank, equals the 1-rank step from the
+        shipped weights on the same draws and indices; the two ranks' step
+        on the data-parallel golden equals the JAX make_mesh(data=2) step.
+    (c) cli.train on the two ranks: 4 steps, rank 0's checkpoint, an
+        auto-resume of both at step 4, step 5's loss against phase 9's.
+    (d) data=1 x model=2 over gloo: two steps equal the 1-rank steps at
+        the JAX test's bars (loss 1e-4 relative, weights 5e-5).
+    (e) the Enhancer split over [cuda:0, cuda:0] equals phase 5's.
+    (f) with two cards or more: (b) over NCCL on two cards, and the
+        denoiser command line with --mesh auto.
+    Returns the data-parallel rank's kernel numbers for the result."""
+    import torch
+    import torch.distributed as dist
+
+    from nhans_tpu_torch.compat.weights import load_npz
+    from nhans_tpu_torch.config import Config
+    from nhans_tpu_torch.infer.enhance import Enhancer
+    from nhans_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
+    from tests.make_torch_golden import DENOISER_NPZ, port_train_golden
+
+    torch.cuda.empty_cache()
+
+    # (a) NCCL, a world of one
+    store = tempfile.mkdtemp(prefix="nccl_", dir=tmp)
+    initialize_multihost(f"file://{store}/store", 1, 0, backend="nccl")
+    try:
+        mesh = make_mesh(data=1)
+        check(dist.get_backend() == "nccl" and mesh.data_group is not None,
+              "a world of one on NCCL with its data group")
+        got = port_train_golden("cuda", tgold, mesh=mesh)
+        say("[15a nccl] world of one on cuda:0, " + step_errors(
+            got, tgold, "the mesh step on the training golden (JAX, CPU)"))
+    finally:
+        dist.destroy_process_group()
+
+    cfg, seed, ref, ref_losses, ref_params = dp_reference(corpus)
+    gold = dp_golden()
+    cli = ["--speech_wav_dir", corpus[0], "--noise_wav_dir", corpus[1],
+           "--checkpoint_dir", f"{tmp}/ck_ranks", "--summaries_dir",
+           f"{tmp}/sum_ranks", "--eval_utts", "0", "--train_monitor_every",
+           "1", "--eval_every", "4"]
+    spec = dict(cfg=cfg, seed=seed, device="cuda:0", batch_utts=DP_UTTS,
+                steps=STEPS_DP, model_axis=True, cli=cli, out=f"{tmp}/p15")
+
+    # (b), (c) and (d) in one pair of processes
+    res, wall = run_phase15_ranks(spec, "gloo")
+    check_data_parallel(res, "[15b gloo]", ref, gold, smi)
+    say("  gloo moves CUDA tensors through the host: these times say "
+        "nothing of NCCL's scaling; both ranks share one card")
+
+    # (d) the model axis
+    for r, rec in enumerate(res):
+        check(rec["blocks"], f"rank {r}: no kernel held as a block")
+        for name, shape in rec["blocks"].items():
+            dim = 0 if len(shape) == 4 else 1
+            check(shape[dim] * 2 == ref_params[name].shape[dim],
+                  f"{name}: block {shape}")
+        rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(rec["tp_loss"], ref_losses))
+        check(rel <= 1e-4, f"model axis rank {r}: losses {rec['tp_loss']} "
+              f"against {ref_losses}")
+    worst = max(float(np.abs(res[0]["tp_params"][k] - v).max())
+                for k, v in ref_params.items())
+    check(worst <= 5e-5, f"model axis weights: max |diff| {worst}")
+    say(f"[15d model axis] data=1 x model=2 over gloo, {len(res[0]['blocks'])}"
+        f" kernels held as halves (e.g. resblock8.conv2.w "
+        f"{res[0]['blocks'].get('resblock8.conv2.w')}): losses of 2 steps "
+        + ", ".join(f"{v:.6f}" for v in res[0]["tp_loss"]) + " against "
+        + ", ".join(f"{v:.6f}" for v in ref_losses)
+        + f" (1 rank); weights within {worst:.3g} of the 1-rank run's")
+
+    # (c) the command line
+    for r, rec in enumerate(res):
+        c = rec["c"]
+        check(c["first"] == 4 and c["resumed_at"] == 4 and c["last"] == 6
+              and c["ckpt_steps"] == [4, 6] and c["banked"]
+              and c["mesh"] == (2, 1) and c["local_utts"] == DP_UTTS // 2,
+              f"cli.train rank {r}: {c}")
+    with open(f"{tmp}/sum_ranks/nhans.jsonl") as f:
+        losses = {r["step"]: r["loss"] for r in map(json.loads, f)
+                  if "loss" in r}
+    check(sorted(losses) == [1, 2, 3, 4, 5, 6], f"rank 0's record: {losses}")
+    rel = abs(losses[5] - banked_losses[5]) / abs(banked_losses[5])
+    check(rel <= RESUME_RTOL, f"2-rank resumed step 5: loss {losses[5]} "
+          f"against {banked_losses[5]} (phase 9, 1 rank)")
+    say(f"[15c cli] cli.train on 2 ranks (gloo, cuda:0): 4 steps, rank 0's "
+        f"checkpoint, both resumed at step 4, to step 6; losses "
+        + ", ".join(f"{losses[k]:.7f}" for k in sorted(losses))
+        + f"; step 5 rel diff {rel:.2g} from phase 9's 1-rank run; the "
+        f"three phases' processes took {wall:.1f} s")
+
+    # (e) serving split over two replicas on the one card
+    _, mixed, pos, neg, out = served
+    two = Enhancer(Config.denoiser(), load_npz(DENOISER_NPZ),
+                   devices=["cuda:0", "cuda:0"])
+    got = two.enhance_batch(mixed, [pos] * 3, [neg] * 3)
+    for i in range(len(mixed)):
+        compare({k: v[i] for k, v in got.items()},
+                {k: v[i] for k, v in out.items()},
+                f"[15e serving] Enhancer(devices=[cuda:0, cuda:0]) against "
+                f"phase 5's, utterance {i}")
+    del two
+
+    # (f) two cards
+    if count >= 2:
+        res_f, _ = run_phase15_ranks(dict(spec, device=None, model_axis=False,
+                                          cli=None, out=f"{tmp}/p15f"),
+                                     "nccl")
+        check_data_parallel(res_f, "[15f nccl]", ref, gold, smi)
+        check_mesh_auto(served, count)
+    else:
+        say("[15f] one card: NCCL between two cards and --mesh auto over "
+            "several are not run here")
+    return {"launches": res[0]["launches"], "rows": res[0]["rows"],
+            "launches_rank1": res[1]["launches"]}
+
+
 def timed_groups(evaluator):
     """Wrap the evaluator's device work per group: (card ms by CUDA events
     from its first copy to the host to its last, host wall s) for each."""
@@ -349,7 +799,7 @@ def main() -> int:
     shapes = [((1, 160000), True), ((4, 160000), True), ((8, 160000), True),
               ((8, 32240), False), ((16, 32240), False),
               ((16, 163600), False), ((16, 64000), False),
-              ((3, 4000 + 77), True), ((2, 400 + 160 * 20), True),
+              ((8, 163600), False), ((3, 4000 + 77), True), ((2, 400 + 160 * 20), True),
               ((1, 400), True), ((2, 399), True), ((64, 160000), True),
               ((8, 256000), True)]
     for shape, with_reim in shapes:
@@ -428,7 +878,7 @@ def main() -> int:
     for B, L, with_reim in ((1, 160000, True), (4, 160000, True),
                             (8, 160000, True), (8, 32240, False),
                             (16, 163600, False), (16, 64000, False),
-                            (8, 256000, True)):
+                            (8, 163600, False), (8, 256000, True)):
         x = torch.from_numpy((rng.standard_normal((B, L)) * 0.3)
                              .astype(np.float32)).to(dev)
         F = sp.num_frames(L)
@@ -623,28 +1073,7 @@ def main() -> int:
     check(str(tgold["input_sha256"]) == input_digest(
         *golden_train_inputs().values()), "training golden inputs")
     got = port_train_golden("cuda", tgold)
-    rel_loss = abs(got["loss"] - float(tgold["loss"])) / float(tgold["loss"])
-    rel_gn = (abs(got["grad_norm"] - float(tgold["grad_norm"]))
-              / float(tgold["grad_norm"]))
-    check(rel_loss <= TRAIN_LOSS_RTOL, f"golden step loss: rel {rel_loss}")
-    check(rel_gn <= TRAIN_GNORM_RTOL, f"golden step grad norm: rel {rel_gn}")
-    delta_errs = {}
-    for path in TRAIN_LAYERS:
-        want = tgold[f"delta/{path}"]
-        err = float(np.abs(got[f"delta/{path}"] - want).max()
-                    / np.abs(want).max())
-        check(err <= TRAIN_DELTA_RTOL, f"golden step update {path}: {err}")
-        delta_errs[path] = err
-    for path in TRAIN_STATS:
-        for name in ("pop_mean", "pop_variance"):
-            key = f"stats/{path}/{name}"
-            check(np.allclose(got[key], tgold[key], atol=1e-4, rtol=1e-3),
-                  f"golden step {key}")
-    say(f"[8 train golden] loss {got['loss']:.6f} (JAX {float(tgold['loss']):.6f},"
-        f" rel {rel_loss:.2g}), grad norm {got['grad_norm']:.5f} (JAX "
-        f"{float(tgold['grad_norm']):.5f}, rel {rel_gn:.2g}); updates, max "
-        "|diff| / max |delta|: " + ", ".join(
-            f"{k} {v:.2g}" for k, v in delta_errs.items()))
+    say("[8 train golden] " + step_errors(got, tgold, "golden step"))
 
     # -- 9. training through the command line, full width -------------------
     from torch.utils.flop_counter import FlopCounterMode
@@ -708,6 +1137,7 @@ def main() -> int:
         init = init_variables(trainer.cfg, seeded, "cpu").state_dict()
         moved(trainer, init)
         check(trainer.ckpt.steps() == [4, 8], "checkpoints at steps 4 and 8")
+        banked_losses = losses  # phase 15 (c) resumes against them
         warm = ms[2:]
         step_ms = float(np.median(warm))
         # FLOPs of one step (forward and backward), counted by torch on the
@@ -1261,6 +1691,10 @@ def main() -> int:
                         if k not in ("step", "time"))
             + f"; on {smi}")
         del trainer
+
+        # -- 15. several ranks -------------------------------------------------
+        p15 = phase15(tmp, corpus, smi, count, tgold, banked_losses,
+                      (den, mixed, pos, neg, out))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1274,7 +1708,9 @@ def main() -> int:
             ("training, bfloat16", (16, 163600, False), bf16_launches,
              [(16, 163600)]),
             ("evaluation", (8, 256000, True), eval_launches,
-             [(8, 256000)])):
+             [(8, 256000)]),
+            ("training, data-parallel rank", (8, 163600, False),
+             p15["launches"], [(8, 163600)])):
         t = timings[key]
         kernels.append({
             "name": f"log_spectrogram ({path})",
@@ -1287,6 +1723,12 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             "shape": list(key[:2]), "with_reim": key[2]})
+        if path == "training, data-parallel rank":
+            kernels[-1]["note"] = (
+                f"launches: rank 0's in phase 15 (b), {1 + STEPS_DP} banked "
+                f"steps of {p15['rows']} utterances a rank over gloo, both "
+                f"ranks on this card (rank 1: {p15['launches_rank1']}); "
+                "times: phase 4 at the rank's shape")
         if path == "training, bfloat16":
             kernels[-1]["note"] = (
                 "launches: the 21 steps of cli.train --dtype bfloat16 "
@@ -1300,5 +1742,57 @@ def main() -> int:
     return 0
 
 
+def main_cards() -> int:
+    """``--cards``: phase 15 (f) alone, for a machine with two cards or
+    more: the data-parallel step over NCCL on two cards against the
+    1-rank step and the data-parallel golden, and --mesh auto serving
+    against the 1-card Enhancer.  Its last line is the result line."""
+    import torch
+
+    if torch.cuda.device_count() < 2:
+        print("chip_smoke --cards: needs two CUDA cards or more",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    from nhans_tpu_torch.cli._app import load_enhancer
+    from nhans_tpu_torch.config import Config
+    from nhans_tpu_torch.ops import _build
+    from tests.make_torch_golden import DENOISER_NPZ
+
+    t_start = time.perf_counter()
+    kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
+    say(f"[cards] {kind} x{count}; nvidia-smi: {'; '.join(smi)}")
+    _build.load("log_spectrogram")
+    rng = np.random.default_rng(5)  # phase 5's inputs
+    seconds = (1.3, 3.1, 10.0)
+    mixed = [utterance(rng, s, 150 + 40 * i) for i, s in enumerate(seconds)]
+    pos = rng.standard_normal(int(0.8 * SR)) * 600
+    neg = rng.standard_normal(3 * SR) * 2000
+    den = load_enhancer(Config.denoiser(), DENOISER_NPZ, device="cuda")
+    served = (den, mixed, pos, neg, None)
+    tmp = tempfile.mkdtemp(prefix="nhans_chip_cards_")
+    try:
+        corpus = write_corpus(tmp, np.random.default_rng(9))
+        cfg, seed, ref, _, _ = dp_reference(corpus)
+        spec = dict(cfg=cfg, seed=seed, device=None, batch_utts=DP_UTTS,
+                    steps=STEPS_DP, model_axis=False, cli=None,
+                    out=f"{tmp}/p15f")
+        res, wall = run_phase15_ranks(spec, "nccl")
+        check_data_parallel(res, "[15f nccl]", ref, dp_golden(), smi[0])
+        say(f"  the two ranks' processes took {wall:.1f} s")
+        check_mesh_auto(served, count)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(f"total {time.perf_counter() - t_start:.1f} s")
+    say(smi[0])
+    say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                           "count": count}}))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main_cards() if sys.argv[1:] == ["--cards"] else main())

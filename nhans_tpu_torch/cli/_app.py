@@ -10,6 +10,9 @@ Next to the output it writes ``<out>_mixed_processed.wav`` and
 ``<out>_removed.wav``, and for the denoiser ``<out>_compensated.wav`` and
 the SNR estimate on standard output.  ``--input`` may be a directory:
 its wavs are enhanced in batches of 8 into the ``--output`` directory.
+``--mesh auto`` splits each batch's rows over the largest power of two
+of visible cards (``Enhancer(devices=...)``); with one card it serves
+unsplit.
 """
 
 from __future__ import annotations
@@ -48,15 +51,29 @@ def _freq_pad(num_features: int) -> int:
     return pad if pad > num_features else 0
 
 
+def mesh_devices(mesh: str, device) -> list:
+    """The serving devices of ``--mesh``: for ``auto`` on a card, the
+    largest power of two of visible cards when that is more than one (the
+    choice printed on stderr); else ``[device]``."""
+    device = torch.device(device)
+    n = torch.cuda.device_count() if device.type == "cuda" else 1
+    if mesh != "auto" or n < 2:
+        return [device]
+    n = 1 << (n.bit_length() - 1)
+    print(f"serving sharded over {n} devices", file=sys.stderr)
+    return [torch.device("cuda", i) for i in range(n)]
+
+
 def load_enhancer(cfg: Config, checkpoint: str, window_chunk: int = 2048,
-                  buckets_seconds=None, device="cuda"):
-    """An ``Enhancer`` for ``cfg`` with the weights of a flat ``.npz``."""
+                  buckets_seconds=None, device="cuda", devices=None):
+    """An ``Enhancer`` for ``cfg`` with the weights of a flat ``.npz``, on
+    ``device`` or split over ``devices``."""
     from nhans_tpu_torch.compat.weights import load_npz
     from nhans_tpu_torch.infer.enhance import DEFAULT_BUCKETS_SECONDS, Enhancer
 
     return Enhancer(cfg, load_npz(checkpoint), window_chunk=window_chunk,
                     buckets_seconds=buckets_seconds or DEFAULT_BUCKETS_SECONDS,
-                    device=device)
+                    device=device, devices=devices)
 
 
 def _read(path: str, fs: int) -> np.ndarray:
@@ -110,7 +127,8 @@ def run(task: str, argv=None) -> None:
         device = resolve_device(args.device)
     except RuntimeError as err:
         sys.exit(f"error: {err}")
-    enhancer = load_enhancer(cfg, args.checkpoint, device=device)
+    enhancer = load_enhancer(cfg, args.checkpoint,
+                             devices=mesh_devices(args.mesh, device))
 
     if os.path.isdir(args.input):
         inputs = wavio.list_wavs(args.input)

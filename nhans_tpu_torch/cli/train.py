@@ -15,19 +15,29 @@ optimizer state, BatchNorm statistics, spectrograms and the loss stay
 float32, and checkpoints are float32), ``--remat`` recomputes each
 main-tower block in the backward pass, ``--freq_pad_to 256`` carries the
 main tower's frequency axis on 256 columns, and ``--profile_dir DIR``
-writes a torch.profiler trace of steps 10 to 20 into DIR.  The JAX
-package's multi-device options (``--data_axis``/``--model_axis`` above 1,
-``--multihost``) are accepted by the parser and refused with a message:
-they are not ported yet (ROADMAP.md).
+writes a torch.profiler trace of steps 10 to 20 into DIR.
+
+Several ranks, one process each (``parallel/``): under ``torchrun`` the
+environment gives the world,
+
+    torchrun --nproc_per_node 8 -m nhans_tpu_torch.cli.train ...
+
+and elsewhere ``--multihost --coordinator HOST:PORT --num_processes N
+--process_id I`` on every process.  ``--data_axis`` x ``--model_axis``
+must be the world size (``--data_axis 0``: the world divided by
+``--model_axis``); each rank trains on ``cuda:{LOCAL_RANK}``, with NCCL
+between the cards.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 
 from nhans_tpu_torch.config import add_training_flags, config_from_args
+from nhans_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
 
 
 def parser() -> argparse.ArgumentParser:
@@ -38,13 +48,17 @@ def parser() -> argparse.ArgumentParser:
                    help="torch device to train on (default cuda; 'cpu' "
                         "runs the plain PyTorch path)")
     p.add_argument("--data_axis", type=int, default=0,
-                   help="data-parallel size (0 or 1: one card; more is "
-                        "not ported)")
+                   help="data-parallel ranks (0: the world divided by "
+                        "--model_axis)")
     p.add_argument("--model_axis", type=int, default=1,
-                   help="tensor-parallel size (1; more is not ported)")
+                   help="tensor-parallel ranks: the wide kernels' output "
+                        "channels split over them")
     p.add_argument("--multihost", action="store_true", default=False,
-                   help="not ported")
-    p.add_argument("--coordinator", default="")
+                   help="join a torch.distributed world of "
+                        "--num_processes processes at --coordinator "
+                        "(torchrun's environment needs no flag)")
+    p.add_argument("--coordinator", default="",
+                   help="HOST:PORT of rank 0 (or a file:// or tcp:// URL)")
     p.add_argument("--num_processes", type=int, default=0)
     p.add_argument("--process_id", type=int, default=-1)
     p.add_argument("--eval_utts", type=int, default=16,
@@ -68,37 +82,48 @@ def parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refusal(args) -> str:
-    """The message for a flag the port does not have, or ''."""
-    refused = [
-        (args.data_axis > 1, f"--data_axis {args.data_axis}"),
-        (args.model_axis > 1, f"--model_axis {args.model_axis}"),
-        (args.multihost, "--multihost"),
-    ]
-    names = [name for hit, name in refused if hit]
-    if not names:
-        return ""
-    return (f"{', '.join(names)}: not ported to nhans_tpu_torch yet (see "
-            "ROADMAP.md, Queue 1); the port trains on one device")
+def _join_world(args) -> None:
+    """``--multihost`` joins the world its flags name, ``torchrun``'s
+    environment the world it describes; otherwise the run has one rank.
+    A world that is already joined stays.  ``--device cpu`` joins over
+    gloo (NCCL takes CUDA tensors only)."""
+    backend = "gloo" if args.device == "cpu" else None
+    if args.multihost:
+        if not (args.coordinator and args.num_processes > 0
+                and args.process_id >= 0):
+            sys.exit("--multihost needs --coordinator HOST:PORT, "
+                     "--num_processes N and --process_id I (under torchrun "
+                     "leave the four flags out)")
+        initialize_multihost(args.coordinator, args.num_processes,
+                             args.process_id, backend)
+    elif "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        initialize_multihost(backend=backend)
 
 
 def build_trainer(argv=None):
     """Parse ``argv`` and build the Trainer, or exit with a message."""
     args = parser().parse_args(argv)
-    msg = _refusal(args)
-    if msg:
-        sys.exit(msg)
+    _join_world(args)
+    try:
+        mesh = make_mesh(args.data_axis or None, args.model_axis)
+    except ValueError as err:
+        sys.exit(f"error: --data_axis {args.data_axis} x --model_axis "
+                 f"{args.model_axis}: {err}")
     cfg = config_from_args(args, task=args.task)
-    cfg = cfg.replace(train=dataclasses.replace(cfg.train,
-                                                async_eval=args.async_eval))
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, async_eval=args.async_eval, data_axis=mesh.data,
+        model_axis=mesh.model))
 
-    print("----------------------------- FLAGS VALUES "
-          "--------------------------------")
-    for k in sorted(vars(args)):
-        print(f"{k}: {getattr(args, k)}")
-    print("----------------------- DATA LOADING, MODEL PREPARING "
-          "-------------------------")
-    print(f"model_name: {cfg.train.model_name}")
+    if mesh.is_primary:
+        print("----------------------------- FLAGS VALUES "
+              "--------------------------------")
+        for k in sorted(vars(args)):
+            print(f"{k}: {getattr(args, k)}")
+        print("----------------------- DATA LOADING, MODEL PREPARING "
+              "-------------------------")
+        print(f"model_name: {cfg.train.model_name}")
+        if mesh.size > 1:
+            print(f"mesh: data {mesh.data} x model {mesh.model} ranks")
 
     from nhans_tpu_torch.train.trainer import Trainer
     from nhans_tpu_torch.utils.device import resolve_device
@@ -107,7 +132,8 @@ def build_trainer(argv=None):
     except RuntimeError as err:  # no card for the default --device cuda
         sys.exit(f"error: {err}")
     try:
-        return Trainer(cfg, eval_utts=args.eval_utts, device=device)
+        return Trainer(cfg, eval_utts=args.eval_utts, device=device,
+                       mesh=mesh)
     except (ValueError, FileNotFoundError) as err:
         sys.exit(f"error: {err}")
 
@@ -118,11 +144,16 @@ def main(argv=None):
     # `kill -USR1 <pid>` dumps all thread stacks of a live run
     install_stack_dump_signal()
     trainer = build_trainer(argv)
-    print("--------------------------------- TRAINING! "
-          "------------------------------------")
+    if trainer.primary:
+        print("--------------------------------- TRAINING! "
+              "------------------------------------")
     trainer.train()
     return trainer
 
 
 if __name__ == "__main__":
     main()
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()

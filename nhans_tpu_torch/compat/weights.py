@@ -6,7 +6,10 @@ The ``.npz`` holds flax variables flattened with ``/``: float16
 maps to a ``state_dict`` key by dropping the collection and reading ``/``
 as ``.``.  Conv kernels go from HWIO to OIHW; dense ``[in, out]`` weights
 are kept as they are; population statistics become buffers.  ``to_flax``
-is the way back, for checkpoints.
+is the way back, for checkpoints.  ``cut_shard`` and ``join_shards`` cut a
+full tensor into the model axis's blocks and join them again
+(``parallel/sharding_rules.py``), so that a tensor-parallel run starts
+from the JAX package's weights and its checkpoints hold full tensors.
 """
 
 from __future__ import annotations
@@ -56,3 +59,20 @@ def load_npz(path: str) -> Dict[str, torch.Tensor]:
     """``from_flax`` of a flat ``.npz`` checkpoint."""
     with np.load(path) as z:
         return from_flax({k: z[k] for k in z.files})
+
+
+def cut_shard(t: torch.Tensor, dim: int, index: int,
+              count: int) -> torch.Tensor:
+    """Block ``index`` of ``count`` equal blocks of ``t`` along ``dim``
+    (a copy): a model-axis shard of a full tensor."""
+    if t.shape[dim] % count:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                         f"into {count} blocks")
+    size = t.shape[dim] // count
+    return t.narrow(dim, index * size, size).clone()
+
+
+def join_shards(blocks, dim: int) -> torch.Tensor:
+    """The full tensor of the model-axis blocks ``blocks`` (in model
+    index order) along ``dim``; ``cut_shard``'s inverse."""
+    return torch.cat(list(blocks), dim=dim)

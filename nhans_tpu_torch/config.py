@@ -3,9 +3,10 @@
 A copy of ``nhans_tpu/config.py``: the audio front end, the model
 architecture, the two task configurations, the input pipeline and the
 trainer, with the command-line flags that fill them.  Fields
-that select TPU machinery (the STFT implementation, the mesh axes) are
-left out: the training command line refuses a mesh.  The port keeps its
-own copy so that it never imports the JAX package.
+that select TPU machinery (the STFT implementation, donation) are left
+out; the mesh axes are the ranks' layout under ``torch.distributed``
+(``parallel/``).  The port keeps its own copy so that it never imports
+the JAX package.
 """
 
 from __future__ import annotations
@@ -196,6 +197,11 @@ class TrainConfig:
     async_eval: bool = False
     # write a torch.profiler trace of steps 10 to 20 here ("" = off)
     profile_dir: str = ""
+    # data-parallel ranks (0 = the world divided by model_axis) and
+    # tensor-parallel ranks, which split the wide kernels' output
+    # channels (parallel/sharding_rules.py); their product is the world
+    data_axis: int = 0
+    model_axis: int = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -260,6 +266,10 @@ def add_inference_flags(parser, task: str = "denoiser") -> None:
     parser.add_argument("--device", default="cuda",
                         help="torch device to serve on (default cuda; "
                              "'cpu' runs the plain PyTorch path)")
+    parser.add_argument("--mesh", default="off", choices=("off", "auto"),
+                        help="auto: split each batch's rows over the "
+                             "largest power of two of visible cards (one "
+                             "card: unsplit)")
 
 
 def add_training_flags(parser) -> None:
@@ -409,6 +419,8 @@ def config_from_args(args, task: str = "denoiser") -> Config:
         eval_before_training=getattr(args, "eval_before_training", False),
         eval_after_training=getattr(args, "eval_after_training", True),
         profile_dir=getattr(args, "profile_dir", ""),
+        data_axis=getattr(args, "data_axis", 0),
+        model_axis=getattr(args, "model_axis", 1),
     )
     return Config(audio=audio, model=model, task=task_cfg, data=data,
                   train=train)

@@ -16,13 +16,14 @@ from __future__ import annotations
 
 import os
 import re
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from nhans_tpu_torch.config import Config
 from nhans_tpu_torch.data.manifest import load_seeds
+from nhans_tpu_torch.parallel.mesh import local_world_size, world_size
 from nhans_tpu_torch.utils import native, wavio
 
 _SPK_RE = re.compile(r"^spk([A-Za-z0-9]+)[_.]")
@@ -147,12 +148,24 @@ class DeviceBanks:
 class BankIndexLoader:
     """Endless step-indexed stream of index batches for ``DeviceBanks``:
     {"clean_idx", "a_idx", "b_idx"}, each int32 [B], from
-    ``numpy.random.default_rng((seed, step))``."""
+    ``numpy.random.default_rng((seed, step))``.
+
+    ``shard`` = (data index, data size): the triples are drawn for the
+    global batch of ``batch_utts`` and the rank keeps its contiguous block
+    of ``batch_utts / size`` rows, so that a banked N-rank run feeds the
+    1-rank run's batch."""
 
     def __init__(self, banks: DeviceBanks, batch_utts: int,
-                 seed: Optional[int] = None, start_step: int = 0):
+                 seed: Optional[int] = None, start_step: int = 0,
+                 shard: Tuple[int, int] = (0, 1)):
         cfg = banks.cfg
         self.B = batch_utts
+        index, count = shard
+        if batch_utts % count:
+            raise ValueError(f"{batch_utts} utterances do not split over "
+                             f"{count} data ranks")
+        per = batch_utts // count
+        self._rows = slice(index * per, (index + 1) * per)
         self.two_noise = banks.two_noise
         self.n_speech = len(banks.speech_paths)
         self.n_noise = len(banks.noise_paths)
@@ -180,7 +193,8 @@ class BankIndexLoader:
         else:
             ai = rng.integers(self.n_noise, size=B).astype(np.int32)
             bi = np.zeros(B, np.int32)
-        return {"clean_idx": ci, "a_idx": ai, "b_idx": bi}
+        r = self._rows
+        return {"clean_idx": ci[r], "a_idx": ai[r], "b_idx": bi[r]}
 
     def close(self) -> None:  # the loader protocol of TrainLoader
         pass
@@ -188,13 +202,16 @@ class BankIndexLoader:
 
 def banks_enabled(cfg: Config, split: str = "train") -> bool:
     """Whether this run keeps its corpus on the device: ``off`` never,
-    ``on`` always (an error if the corpus exceeds the budget), ``auto``
-    when the decoded corpus fits ``device_corpus_mb``.  The port runs in
-    one process, so the JAX package's multi-host condition does not
-    arise."""
+    ``on`` always (an error if the corpus exceeds the budget or the world
+    spans nodes), ``auto`` when the decoded corpus fits
+    ``device_corpus_mb`` and the world is one node.  Every rank holds the
+    whole corpus, which needs the same files on every rank: across nodes
+    the streaming loader shards the manifest instead, as the JAX package
+    does across hosts."""
     mode = cfg.data.device_corpus
     if mode == "off":
         return False
+    multi_node = world_size() > local_world_size()
     try:
         speech = load_seeds(cfg.data.speech_wav_dir, split)
         noise = (load_seeds(cfg.data.noise_wav_dir, split)
@@ -205,8 +222,15 @@ def banks_enabled(cfg: Config, split: str = "train") -> bool:
             raise
         return False
     fits = total <= cfg.data.device_corpus_mb * (1 << 20)
-    if mode == "on" and not fits:
-        raise ValueError(
-            f"device_corpus=on but corpus is {total >> 20} MB > "
-            f"budget {cfg.data.device_corpus_mb} MB")
-    return fits
+    if mode == "on":
+        if multi_node:
+            raise ValueError(
+                "device_corpus=on is single-host only (replicated banks "
+                "require identical content on every host; the streaming "
+                "loader shards manifests per host instead)")
+        if not fits:
+            raise ValueError(
+                f"device_corpus=on but corpus is {total >> 20} MB > "
+                f"budget {cfg.data.device_corpus_mb} MB")
+        return True
+    return (not multi_node) and fits

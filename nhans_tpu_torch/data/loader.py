@@ -18,7 +18,7 @@ import collections
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +27,7 @@ from nhans_tpu_torch.config import Config
 from nhans_tpu_torch.data.banks import build_disjoint_table
 from nhans_tpu_torch.data.manifest import load_seeds
 from nhans_tpu_torch.dsp.mixing import snr_index_from_path
+from nhans_tpu_torch.parallel.mesh import process_shard
 from nhans_tpu_torch.utils import native, wavio
 
 
@@ -59,23 +60,36 @@ class TrainLoader:
     and the whole-file peaks [B, 3].  For the separator ``noise_a`` is
     another speech utterance, from another real voice where the corpus
     has two or more, and ``noise_b`` is zeros.  ``decoder``: "native" or
-    "numpy", the decoder the workers use."""
+    "numpy", the decoder the workers use.
+
+    ``shard`` = (data index, data size): the rank reads
+    ``process_shard(manifest)`` at its data index, as the JAX package's
+    hosts do.  The separator's interferers come from the whole manifest
+    through the other-speaker table, so that a shard holding one voice
+    keeps the speaker-disjoint pairing."""
 
     def __init__(self, cfg: Config, batch_utts: int, split: str = "train",
                  seed: Optional[int] = None,
-                 num_workers: Optional[int] = None):
+                 num_workers: Optional[int] = None,
+                 shard: Tuple[int, int] = (0, 1)):
         self.cfg = cfg
         self.batch = batch_utts
         self.L = cfg.data.max_samples
         self.two_noise = cfg.task.two_noise_mixing
-        self.speech = load_seeds(cfg.data.speech_wav_dir, split)
-        self.noise = (load_seeds(cfg.data.noise_wav_dir, split)
+        speech_full = load_seeds(cfg.data.speech_wav_dir, split)
+        self.speech = process_shard(speech_full, *shard)
+        self.noise = (process_shard(load_seeds(cfg.data.noise_wav_dir,
+                                               split), *shard)
                       if self.two_noise else self.speech)
         if not self.speech or not self.noise:
             raise ValueError("empty manifest(s)")
         self._other: Optional[List[np.ndarray]] = None
+        self._speech_full = speech_full
+        self._shard_to_full: Optional[List[int]] = None
         if not self.two_noise:
-            self._other = build_disjoint_table(self.speech)
+            self._other = build_disjoint_table(speech_full)
+            full_idx = {p: k for k, p in enumerate(speech_full)}
+            self._shard_to_full = [full_idx[p] for p in self.speech]
         self._q: "queue.Queue" = queue.Queue(maxsize=cfg.data.prefetch * 2)
         self._err: List[BaseException] = []
         self._stop = threading.Event()
@@ -98,8 +112,10 @@ class TrainLoader:
         cidx = [int(rng.integers(len(self.speech))) for _ in range(B)]
         cpaths = [self.speech[i] for i in cidx]
         if self._other is not None:
-            apaths = [self.speech[self._other[i][rng.integers(
-                len(self._other[i]))]] for i in cidx]
+            # table rows and entries are positions in the whole manifest
+            others = [self._other[self._shard_to_full[i]] for i in cidx]
+            apaths = [self._speech_full[o[rng.integers(len(o))]]
+                      for o in others]
         else:
             apaths = [self.noise[rng.integers(len(self.noise))]
                       for _ in range(B)]

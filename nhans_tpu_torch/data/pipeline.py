@@ -90,7 +90,8 @@ def make_train_batch(cfg: Config, clean: torch.Tensor, noise_a: torch.Tensor,
                      slices: Optional[int] = None,
                      peaks: Optional[torch.Tensor] = None,
                      draws: Optional[Draws] = None,
-                     generator: Optional[torch.Generator] = None
+                     generator: Optional[torch.Generator] = None,
+                     rows: Optional[tuple] = None
                      ) -> Dict[str, torch.Tensor]:
     """A training minibatch from raw waveform buffers (int16 or float32,
     at int16 scale).
@@ -99,7 +100,12 @@ def make_train_batch(cfg: Config, clean: torch.Tensor, noise_a: torch.Tensor,
     noises; for the separator ``noise_a`` is the interfering utterance and
     ``noise_b`` is unused.  ``peaks`` [B, 3] are whole-file peaks from the
     loader.  The random draws come from ``draws`` (see
-    ``draw_train_batch``) or, without it, from ``generator``.
+    ``draw_train_batch``) or, without it, from ``generator``.  Under data
+    parallelism the buffers are this rank's rows of the global batch and
+    ``rows`` = (first row, global rows) places them: the draws are the
+    global batch's (from ``generator``, or ``draws`` for all of its rows)
+    and this rank keeps its own, so that the batch does not depend on the
+    number of ranks.
 
     Returns mixed windows [N, W, F], target central frames [N, F], the
     two contexts [N, C, F] and the SNRs [N], with N = B * slices."""
@@ -110,9 +116,10 @@ def make_train_batch(cfg: Config, clean: torch.Tensor, noise_a: torch.Tensor,
     W, C = m.window_frames, m.context_frames
     pad_before = ((W + 1) // 2) - 1
     dev = clean.device
+    first, total = rows or (0, B)
     if draws is None:
-        draws = draw_train_batch(cfg, B, K, generator)
-    draws = {k: to_device(v, dev) for k, v in draws.items()}
+        draws = draw_train_batch(cfg, total, K, generator)
+    draws = {k: to_device(v[first:first + B], dev) for k, v in draws.items()}
 
     # the int16 wire type is cast here, on the device
     clean = clean.to(torch.float32)

@@ -10,13 +10,20 @@ Utterances run on the utterance zero-padded to its length bucket and on
 a batch padded to a power of two, exactly as in the JAX package, so that
 the windows of the last frames read the same zero-audio frames and the
 outputs agree.  The JAX package's device-tunnel machinery (packed
-parameters, the int16 output wire, the device mesh) is not carried over:
-outputs are float32, as with the JAX ``Enhancer(out_wire="float32")``.
+parameters, the int16 output wire) is not carried over: outputs are
+float32, as with the JAX ``Enhancer(out_wire="float32")``.
+
+Several devices (``devices``, the JAX package's ``Enhancer(mesh=...)``):
+one process keeps a replica of the weights on each and splits the rows
+of every batch over them, a contiguous block each; utterances are
+independent, so nothing is exchanged.  Every device's work is queued
+before any result is read back, so the devices run together.
 """
 
 from __future__ import annotations
 
 import collections
+import copy
 import hashlib
 from typing import Dict, Tuple
 
@@ -78,15 +85,29 @@ class Enhancer:
     ``state_dict``: the model's weights (``compat.weights.load_npz``).
     ``window_chunk``: windows per model call, which bounds activation
     memory.  ``device``: ``cuda`` unless the caller asks for ``cpu``.
+    ``devices``: several devices to split each batch's rows over, a power
+    of two of them (in place of ``device``); a batch then has at least
+    one row per device.
     """
 
     def __init__(self, cfg: Config, state_dict, window_chunk: int = 2048,
-                 buckets_seconds=DEFAULT_BUCKETS_SECONDS, device="cuda"):
+                 buckets_seconds=DEFAULT_BUCKETS_SECONDS, device="cuda",
+                 devices=None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        if devices is None:
+            devices = [device]
+        n = len(devices)
+        if n < 1 or n & (n - 1):
+            raise ValueError(f"Enhancer devices: {n} given; the count must "
+                             "be a power of two (batches ride power-of-two "
+                             "sizes)")
+        self.devices = [resolve_device(d) for d in devices]
+        self.device = self.devices[0]
         model = NHANSNet(cfg.model)
         model.load_state_dict(state_dict, strict=True)
-        self.model = model.to(self.device).eval()
+        self.models = [copy.deepcopy(model).to(d).eval()
+                       for d in self.devices]
+        self.model = self.models[0]
         self.window_chunk = int(window_chunk)
         self.buckets = [int(s * cfg.audio.sample_rate) for s in buckets_seconds]
         self._ctx_cache = collections.OrderedDict()
@@ -96,8 +117,9 @@ class Enhancer:
     # device work
     # ------------------------------------------------------------------ #
 
-    def _tensor(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+    @staticmethod
+    def _tensor(arr: np.ndarray, device) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
     def _bucket_for(self, num_samples: int) -> int:
         """The smallest bucket that holds the utterance; beyond the largest
@@ -107,36 +129,38 @@ class Enhancer:
     @torch.inference_mode()
     @full_float32()
     def _encode_contexts(self, ctx: np.ndarray, ints: np.ndarray,
-                         peaks: np.ndarray):
-        """(emb_a, emb_b) [B, 512] on the device for int16 context buffers
-        ctx [B, 2, ctx_n], memoised on the context bytes (bounded LRU)."""
+                         peaks: np.ndarray, shard: int = 0):
+        """(emb_a, emb_b) [B, 512] on device ``shard`` for int16 context
+        buffers ctx [B, 2, ctx_n], memoised on the context bytes (bounded
+        LRU)."""
         B = ctx.shape[0]
+        dev, model = self.devices[shard], self.models[shard]
         h = hashlib.sha1(ctx.tobytes())
         h.update(ints[:, 1:3].tobytes())
         h.update(peaks[:, 1:3].tobytes())
-        key = (B, h.hexdigest())
+        key = (shard, B, h.hexdigest())
         hit = self._ctx_cache.get(key)
         if hit is not None:
             self._ctx_cache.move_to_end(key)
             return hit
         a, m = self.cfg.audio, self.cfg.model
         fl, fs = a.frame_length, a.frame_step
-        ctx_t = self._tensor(ctx).to(torch.float32)
-        peaks_t = self._tensor(peaks)
+        ctx_t = self._tensor(ctx, dev).to(torch.float32)
+        peaks_t = self._tensor(peaks, dev)
         pos = ctx_t[:, 0] / (peaks_t[:, 1:2] + 1e-6)
         neg = ctx_t[:, 1] / (peaks_t[:, 2:3] + 1e-6)
         # both contexts of every row in one spectrogram launch [2B, ctx_n]
         lm = sp.log_spectrogram(torch.cat([pos, neg]), fl, fs, a.log_eps)
-        counts = self._tensor(ints[:, 1:3].astype(np.int64))
+        counts = self._tensor(ints[:, 1:3].astype(np.int64), dev)
         # the first 200 frames, tiled cyclically when the recording is short
         nf = torch.clamp(1 + torch.clamp(counts - fl, min=0) // fs, min=1)
-        ar = torch.arange(m.context_frames, device=self.device)[None, :]
+        ar = torch.arange(m.context_frames, device=dev)[None, :]
         tiled = []
         for col, spec in enumerate((lm[:B], lm[B:])):
             idx = torch.remainder(ar, nf[:, col:col + 1])
             tiled.append(torch.gather(
                 spec, 1, idx[:, :, None].expand(-1, -1, spec.shape[-1])))
-        embs = self.model(None, tiled[0], tiled[1])
+        embs = model(None, tiled[0], tiled[1])
         self._ctx_cache[key] = embs
         while len(self._ctx_cache) > self._ctx_cache_max:
             self._ctx_cache.popitem(last=False)
@@ -145,8 +169,8 @@ class Enhancer:
     @torch.inference_mode()
     @full_float32()
     def _run(self, mixed: np.ndarray, ints: np.ndarray, peaks: np.ndarray,
-             emb_a: torch.Tensor, emb_b: torch.Tensor):
-        """One batch on the device.  mixed [B, L] int16 raw samples;
+             emb_a: torch.Tensor, emb_b: torch.Tensor, shard: int = 0):
+        """One batch on device ``shard``.  mixed [B, L] int16 raw samples;
         ints [B, 5] = (n_mixed, n_pos, n_neg, keep_from, keep_until);
         peaks [B, 3] whole-file peaks.  Only frames in
         [keep_from, min(keep_until, nf)) reach the reconstruction.
@@ -154,19 +178,20 @@ class Enhancer:
         meta [B, 3] (snr_est, n_out, cap_clip_frac), still on the device."""
         a, m = self.cfg.audio, self.cfg.model
         fl, fs = a.frame_length, a.frame_step
-        x = (self._tensor(mixed).to(torch.float32)
-             / (self._tensor(peaks)[:, 0:1] + 1e-6))
-        ints_t = self._tensor(ints.astype(np.int64))
+        dev = self.devices[shard]
+        x = (self._tensor(mixed, dev).to(torch.float32)
+             / (self._tensor(peaks, dev)[:, 0:1] + 1e-6))
+        ints_t = self._tensor(ints.astype(np.int64), dev)
         logmag, s_re, s_im = sp.spectrogram_reim(x, fl, fs, a.log_eps)
         nframes = logmag.shape[1]
         n_mixed, keep_from, keep_until = ints_t[:, 0], ints_t[:, 3], ints_t[:, 4]
         nf = 1 + torch.clamp(n_mixed - fl, min=0) // fs
-        far = torch.arange(nframes, device=self.device)[None, :]
+        far = torch.arange(nframes, device=dev)[None, :]
         fmask = ((far < torch.minimum(nf, keep_until)[:, None])
                  & (far >= keep_from[:, None]))                  # [B, F]
 
-        residuals = window_residuals(self.model, logmag, emb_a, emb_b,
-                                     self.window_chunk)
+        residuals = window_residuals(self.models[shard], logmag, emb_a,
+                                     emb_b, self.window_chunk)
         cap = a.recon_residual_cap
         if cap > 0:
             # amplification cap: inert on healthy outputs, bounds
@@ -179,7 +204,7 @@ class Enhancer:
                                       * m.num_features, min=1))
             residuals = torch.clamp(residuals, max=cap)
         else:
-            cap_frac = torch.zeros(x.shape[0], device=self.device)
+            cap_frac = torch.zeros(x.shape[0], device=dev)
         denoised_lm = logmag + residuals
 
         # masked reconstruction with the mixed phase: cos/sin of the phase
@@ -196,7 +221,7 @@ class Enhancer:
         removed_wav = mixed_wav - denoised_wav
 
         n_out = fs * (nf - 1) + fl                                  # [B]
-        smask = (torch.arange(denoised_wav.shape[-1], device=self.device)
+        smask = (torch.arange(denoised_wav.shape[-1], device=dev)
                  [None, :] < n_out[:, None]).to(denoised_wav.dtype)
         d2 = torch.sum(torch.square(denoised_wav) * smask, dim=-1)
         r2 = torch.sum(torch.square(removed_wav) * smask, dim=-1)
@@ -231,7 +256,8 @@ class Enhancer:
         asynchronously on the card; pair with :meth:`_materialize`."""
         ctx_n = context_samples(self.cfg)
         nreal = len(mixed_list)
-        B = 1 << max(0, (nreal - 1).bit_length())  # next power of two
+        # the next power of two, and at least a row per device
+        B = max(1 << max(0, (nreal - 1).bit_length()), len(self.devices))
         pad_b = B - nreal
         mixed_list = list(mixed_list) + [mixed_list[-1]] * pad_b
         pos_list = list(pos_list) + [pos_list[-1]] * pad_b
@@ -254,12 +280,32 @@ class Enhancer:
                     self._context_row(w, ctx_n)
         ints[:, 4] = sp.num_frames(bucket, self.cfg.audio.frame_length,
                                    self.cfg.audio.frame_step)
-        emb_a, emb_b = self._encode_contexts(ctx, ints, peaks)
-        return self._run(mixed, ints, peaks, emb_a, emb_b), nreal
+        return self._launch(mixed, ints, peaks, ctx), nreal
+
+    def _launch(self, mixed: np.ndarray, ints: np.ndarray,
+                peaks: np.ndarray, ctx: np.ndarray) -> list:
+        """The batch's device work, its rows split over the devices in
+        contiguous blocks: [(wavs, meta)] per device, still on the
+        devices.  Nothing waits for a device here."""
+        per = mixed.shape[0] // len(self.devices)
+        outs = []
+        for i in range(len(self.devices)):
+            r = slice(i * per, (i + 1) * per)
+            emb_a, emb_b = self._encode_contexts(ctx[r], ints[r], peaks[r], i)
+            outs.append(self._run(mixed[r], ints[r], peaks[r], emb_a, emb_b,
+                                  i))
+        return outs
 
     @staticmethod
-    def _materialize(outs, nreal) -> Dict[str, list]:
-        wavs, meta = (t.cpu().numpy() for t in outs)
+    def _gather(outs) -> Tuple[np.ndarray, np.ndarray]:
+        """(wavs, meta) of ``_launch``'s blocks on the host, in row
+        order."""
+        return tuple(np.concatenate([o[j].cpu().numpy() for o in outs])
+                     for j in (0, 1))
+
+    @classmethod
+    def _materialize(cls, outs, nreal) -> Dict[str, list]:
+        wavs, meta = cls._gather(outs)
         den, mix = wavs[:, 0], wavs[:, 1]
         snr = meta[:, 0]
         n_out = meta[:, 1].astype(np.int64)
@@ -320,7 +366,9 @@ class Enhancer:
         out_len = fs * (F_total - 1) + fl
         den_full = np.zeros(out_len, np.float64)
         mix_full = np.zeros(out_len, np.float64)
-        B = segment_batch
+        # a multiple of the device count, at least one row per device
+        ndev = len(self.devices)
+        B = -(-max(segment_batch, ndev) // ndev) * ndev
         for i0 in range(0, len(cores), B):
             group = cores[i0:i0 + B]
             seg = np.zeros((B, Lseg), np.int16)
@@ -342,9 +390,7 @@ class Enhancer:
             ctx = np.zeros((B, 2, ctx_n), np.int16)
             ctx[:, 0], ctx[:, 1] = pos_b, neg_b
             # contexts are the same for every segment: encoded once (cache)
-            emb_a, emb_b = self._encode_contexts(ctx, ints, peaks)
-            wavs, _ = self._run(seg, ints, peaks, emb_a, emb_b)
-            wavs = wavs.cpu().numpy()
+            wavs, _ = self._gather(self._launch(seg, ints, peaks, ctx))
             for j in range(len(group)):
                 o = offsets[j]
                 span = min(wavs.shape[-1], out_len - o)

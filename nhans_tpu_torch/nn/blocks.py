@@ -12,6 +12,11 @@ the flax layers do: ``Dense`` and ``Conv`` cast their input and their
 float32 weight and bias to it, ``BatchNorm`` takes its moments and
 normalises in float32 and returns ``dtype``.  Parameters and population
 statistics stay float32, so gradients and optimizer state do too.
+
+Under a mesh (``parallel/sharding_rules.py::shard_model``) a
+``BatchNorm`` in training takes its moments over the data group's whole
+batch, and a wide ``Conv`` or ``Dense`` holds only its model index's block
+of output channels and gathers the rest from the model group.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import contextlib
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -30,6 +36,83 @@ def same_pads(n: int, k: int, s: int) -> Tuple[int, int, int]:
     out = -(-n // s)
     total = max((out - 1) * s + k - n, 0)
     return total // 2, total - total // 2, out
+
+
+class _SumGradOverModel(torch.autograd.Function):
+    """Identity forward; the backward sums the input's gradient over the
+    model group, where each rank holds the part that reached the input
+    through its own block of output channels."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        out = g.to(torch.float32).contiguous()
+        dist.all_reduce(out, group=ctx.group)
+        return out.to(g.dtype), None
+
+
+class _GatherChannels(torch.autograd.Function):
+    """The full output from each model rank's block along ``dim``: each
+    rank writes its block into zeros of the full width and the group sums
+    them, which is exact (gloo and NCCL both take an all-reduce of CUDA
+    tensors; gloo has no all-gather for them).  Every model rank computes
+    the same loss from the full output, so the backward takes this rank's
+    block of the gradient as it is: a sum over the group would count it
+    once per rank."""
+
+    @staticmethod
+    def forward(ctx, y, dim, start, full, group):
+        ctx.dim, ctx.start, ctx.size = dim, start, y.shape[dim]
+        shape = list(y.shape)
+        shape[dim] = full
+        out = y.new_zeros(shape, dtype=torch.float32)
+        out.narrow(dim, start, ctx.size).copy_(y)
+        dist.all_reduce(out, group=group)
+        return out.to(y.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.narrow(ctx.dim, ctx.start, ctx.size).contiguous(),
+                None, None, None, None)
+
+
+class _ModelShard:
+    """A layer's block of output channels on the model axis: rows
+    ``[start, start + size)`` of ``full`` along the weight's dim
+    ``dim``, gathered over ``group``."""
+
+    def __init__(self, dim: int, start: int, size: int, full: int, group):
+        self.dim, self.start, self.size = dim, start, size
+        self.full, self.group = full, group
+
+
+def _shard_weight(layer: nn.Module, dim: int, index: int, count: int,
+                  group) -> None:
+    """Keep block ``index`` of ``count`` of ``layer.w`` along ``dim``."""
+    full = layer.w.shape[dim]
+    size = full // count
+    with torch.no_grad():
+        block = layer.w.narrow(dim, index * size, size).clone()
+    layer.w = nn.Parameter(block)
+    layer.shard = _ModelShard(dim, index * size, size, full, group)
+
+
+def _sharded(layer: nn.Module, x: torch.Tensor, apply, out_dim: int,
+             bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """``apply(x)`` on this rank's block of output channels, gathered to
+    all of them along ``out_dim``, plus the bias."""
+    sh = layer.shard
+    x = _SumGradOverModel.apply(x, sh.group)
+    y = _GatherChannels.apply(apply(x), out_dim, sh.start, sh.full, sh.group)
+    if bias is None:
+        return y
+    shape = [1] * y.ndim
+    shape[out_dim] = -1
+    return y + bias.view(shape)
 
 
 class Dense(nn.Module):
@@ -44,10 +127,19 @@ class Dense(nn.Module):
         self.dtype = dtype
         self.w = nn.Parameter(torch.zeros(in_features, features))
         self.b = nn.Parameter(torch.zeros(features)) if use_bias else None
+        self.shard: Optional[_ModelShard] = None
+
+    def shard_out(self, index: int, count: int, group) -> None:
+        """Hold block ``index`` of ``count`` of the output features."""
+        _shard_weight(self, 1, index, count, group)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.matmul(x.to(self.dtype), self.w.to(self.dtype))
-        return y + self.b.to(self.dtype) if self.b is not None else y
+        x, w = x.to(self.dtype), self.w.to(self.dtype)
+        b = self.b.to(self.dtype) if self.b is not None else None
+        if self.shard is not None:
+            return _sharded(self, x, lambda v: torch.matmul(v, w), -1, b)
+        y = torch.matmul(x, w)
+        return y + b if b is not None else y
 
 
 class Conv(nn.Module):
@@ -72,6 +164,11 @@ class Conv(nn.Module):
         self.w = nn.Parameter(torch.zeros(features, in_features,
                                           *self.kernel_size))
         self.b = nn.Parameter(torch.zeros(features)) if use_bias else None
+        self.shard: Optional[_ModelShard] = None
+
+    def shard_out(self, index: int, count: int, group) -> None:
+        """Hold block ``index`` of ``count`` of the output channels."""
+        _shard_weight(self, 0, index, count, group)
 
     def forward(self, x: torch.Tensor,
                 freq_size: Optional[int] = None) -> torch.Tensor:
@@ -87,7 +184,11 @@ class Conv(nn.Module):
             if tl or th or fl or fh:
                 x = F.pad(x, (fl, fh, tl, th))
         b = None if self.b is None else self.b.to(dt)
-        return F.conv2d(x, self.w.to(dt), b, stride=self.strides)
+        w = self.w.to(dt)
+        if self.shard is not None:
+            return _sharded(self, x, lambda v: F.conv2d(
+                v, w, stride=self.strides), 1, b)
+        return F.conv2d(x, w, b, stride=self.strides)
 
 
 def trunc_normal_(w: torch.Tensor, std: float,
@@ -122,7 +223,15 @@ class BatchNorm(nn.Module):
     ``train=False``) the population statistics are used.  The
     normalisation is in float32 and the output in ``dtype``.
     ``update_stats`` False (``frozen_stats``) keeps the population
-    statistics where they are in training."""
+    statistics where they are in training.
+
+    With a data ``group`` (``parallel/sharding_rules.py::shard_model``),
+    the training moments are those of the group's whole batch, as the JAX
+    package's pjit step takes them: each rank's sum and sum of squares go
+    through a differentiable all-reduce, whose backward all-reduces the
+    upstream gradient, and are divided by the global count.
+    ``nn.SyncBatchNorm`` cannot stand in (unbiased variance, another
+    momentum rule)."""
 
     def __init__(self, features: int, eps: float = 1e-3,
                  decay: float = 0.95, dtype: torch.dtype = torch.float32):
@@ -131,6 +240,7 @@ class BatchNorm(nn.Module):
         self.decay = decay
         self.dtype = dtype
         self.update_stats = True
+        self.group = None
         self.beta = nn.Parameter(torch.zeros(features))
         self.gamma = nn.Parameter(torch.ones(features))
         self.register_buffer("pop_mean", torch.zeros(features))
@@ -142,8 +252,11 @@ class BatchNorm(nn.Module):
         x32 = x.to(torch.float32)
         if self.training:
             dims = (0,) + tuple(range(2, x.ndim))
-            mean = torch.mean(x32, dim=dims)
-            var = torch.mean(x32 * x32, dim=dims) - mean * mean
+            if self.group is None:
+                mean = torch.mean(x32, dim=dims)
+                var = torch.mean(x32 * x32, dim=dims) - mean * mean
+            else:
+                mean, var = self._global_moments(x32, dims)
             if self.update_stats:
                 with torch.no_grad():
                     d = self.decay
@@ -154,6 +267,17 @@ class BatchNorm(nn.Module):
         inv = torch.rsqrt(var + self.eps) * self.gamma
         y = (x32 - mean.view(shape)) * inv.view(shape) + self.beta.view(shape)
         return y.to(self.dtype)
+
+    def _global_moments(self, x32: torch.Tensor, dims):
+        from torch.distributed.nn.functional import all_reduce
+
+        sums = all_reduce(torch.stack([torch.sum(x32, dim=dims),
+                                       torch.sum(x32 * x32, dim=dims)]),
+                          group=self.group)
+        count = (x32.numel() // x32.shape[1]) * dist.get_world_size(
+            self.group)
+        mean = sums[0] / count
+        return mean, sums[1] / count - mean * mean
 
 
 @contextlib.contextmanager

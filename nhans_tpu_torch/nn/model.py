@@ -27,7 +27,7 @@ rematerialisation of its blocks in the backward pass (``remat``).
 from __future__ import annotations
 
 import contextlib
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -252,7 +252,8 @@ class NHANSNet(nn.Module):
                 ctx_b: Optional[torch.Tensor] = None,
                 emb_a: Optional[torch.Tensor] = None,
                 emb_b: Optional[torch.Tensor] = None,
-                embed_noise: Optional[torch.Generator] = None):
+                embed_noise: Optional[torch.Generator] = None,
+                noise_rows: Optional[Tuple[int, int]] = None):
         """``mixed`` [B, W, F] windows; either the context spectrograms
         ``ctx_a``/``ctx_b`` [B, C, F] or their precomputed 512-d embeddings
         ``emb_a``/``emb_b``.  With ``mixed=None`` it only encodes the
@@ -262,15 +263,19 @@ class NHANSNet(nn.Module):
         second, so in training its BatchNorms move their population
         statistics twice, in that order.  In training with
         ``cfg.ctx_embed_noise > 0`` and a generator ``embed_noise``, each
-        embedding gets Gaussian noise of that size times its RMS."""
+        embedding gets Gaussian noise of that size times its RMS.  Under
+        data parallelism ``noise_rows`` = (first row, global rows) says
+        where this rank's rows sit in the global batch: the noise is drawn
+        for the global batch and this rank keeps its rows, so that the
+        draws do not depend on the number of ranks."""
         if emb_a is None:
             emb_a = self.embedding(ctx_a)
         if emb_b is None:
             emb_b = self.embedding(ctx_b)
         sigma = self.cfg.ctx_embed_noise
         if self.training and sigma > 0.0 and embed_noise is not None:
-            emb_a = _jitter(emb_a, sigma, embed_noise)
-            emb_b = _jitter(emb_b, sigma, embed_noise)
+            emb_a = _jitter(emb_a, sigma, embed_noise, noise_rows)
+            emb_b = _jitter(emb_b, sigma, embed_noise, noise_rows)
         if mixed is None:
             return emb_a, emb_b
         out = mixed[:, None]
@@ -305,11 +310,14 @@ class NHANSNet(nn.Module):
 
 
 
-def _jitter(e: torch.Tensor, sigma: float,
-            generator: torch.Generator) -> torch.Tensor:
-    """e + sigma * RMS(e) * N(0, 1), the RMS over the embedding axis."""
+def _jitter(e: torch.Tensor, sigma: float, generator: torch.Generator,
+            rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """e + sigma * RMS(e) * N(0, 1), the RMS over the embedding axis; the
+    draws of ``rows`` = (first, total) rows, as ``forward`` says."""
     rms = torch.sqrt(torch.mean(e * e, dim=-1, keepdim=True) + 1e-8)
-    z = torch.randn(e.shape, generator=generator, device=generator.device)
+    first, total = rows or (0, e.shape[0])
+    z = torch.randn((total,) + tuple(e.shape[1:]), generator=generator,
+                    device=generator.device)[first:first + e.shape[0]]
     return e + sigma * rms * to_device(z, e.device).to(e.dtype)
 
 

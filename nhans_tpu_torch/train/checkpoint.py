@@ -12,7 +12,10 @@ The port writes its own: ``<checkpoint_dir>/<model_name>/<step>/`` holds
   and each of its state slots as ``opt/<slot>/<flax path>``.
 
 A step directory is written under a temporary name and renamed, so a
-reader never sees half of one.
+reader never sees half of one.  Both files hold full tensors: a
+tensor-parallel run joins its model-axis blocks before it saves, and
+``load_into`` cuts them again for a model whose wide kernels hold blocks
+(``parallel/sharding_rules.py``), so a checkpoint loads on any mesh.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from nhans_tpu_torch.compat.weights import from_flax, to_flax
+from nhans_tpu_torch.parallel.sharding_rules import cut_full, model_shards
 
 VARIABLES = "variables.npz"
 TRAIN_STATE = "train_state.npz"
@@ -157,8 +161,8 @@ class Checkpointer:
 
 def load_into(model: torch.nn.Module, variables: dict) -> None:
     """Copy flat flax variables into ``model`` in place (every name must
-    match)."""
-    state = from_flax(variables)
+    match); a kernel that holds a model-axis block takes its block."""
+    state = cut_full(from_flax(variables), model_shards(model))
     missing = set(model.state_dict()) ^ set(state)
     if missing:
         raise ValueError(f"checkpoint does not match the model: "

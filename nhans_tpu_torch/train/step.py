@@ -6,6 +6,16 @@ The state's ``params`` and ``batch_stats`` are the model's own parameter
 and buffer tensors, keyed by ``state_dict`` name (the flax names with
 ``.`` for ``/``); a step updates them in place.  TF32 is off while the
 step launches its work, and the process's settings come back after.
+
+Under a mesh (``parallel/``) each rank takes its rows of the global
+batch, with the global batch's random draws; its BatchNorms take the
+global moments (``nn/blocks.py``).  The gradients are averaged over the
+data group in one all-reduce of a flat float32 buffer before the global
+gradient norm and the update, so every data rank applies the same update
+to the same weights.  The reported loss is the global one.  With the
+model axis the wide kernels hold blocks of their output channels, their
+gradients are local to the block, and the gradient norm sums the blocks
+over the model group.
 """
 
 from __future__ import annotations
@@ -15,11 +25,14 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from nhans_tpu_torch.config import Config
 from nhans_tpu_torch.data.pipeline import make_train_batch
 from nhans_tpu_torch.models import init_variables
 from nhans_tpu_torch.nn.model import NHANSNet, freq_weighted_mse
+from nhans_tpu_torch.parallel.mesh import all_reduce_mean
+from nhans_tpu_torch.parallel.sharding_rules import model_shards, shard_model
 from nhans_tpu_torch.train.optim import (Optimizer, make_optimizer,
                                          make_schedule)
 from nhans_tpu_torch.utils.device import full_float32
@@ -48,12 +61,15 @@ def state_of(model: NHANSNet, tx: Optimizer, step: int = 0) -> TrainState:
                                          for k, p in params.items()}))
 
 
-def create_state(cfg: Config, generator: torch.Generator, device="cuda"
-                 ) -> Tuple[NHANSNet, TrainState, Optimizer]:
+def create_state(cfg: Config, generator: torch.Generator, device="cuda",
+                 mesh=None) -> Tuple[NHANSNet, TrainState, Optimizer]:
     """(model, state, optimizer) with the seeded init of
     ``models.init_variables``, on the card unless the caller asks for
-    ``cpu``."""
+    ``cpu``; with a ``mesh``, put on it (``sharding_rules.shard_model``)
+    before the optimizer's state is made."""
     model = init_variables(cfg, generator, device)
+    if mesh is not None:
+        shard_model(model, mesh)
     tx = make_tx(cfg)
     return model, state_of(model, tx), tx
 
@@ -65,11 +81,15 @@ def param_counts(state: TrainState) -> Tuple[int, int]:
 
 
 def train_loss(cfg: Config, model: NHANSNet, ex: Dict[str, torch.Tensor],
-               embed_noise=None) -> torch.Tensor:
+               embed_noise=None, mesh=None, rows=None) -> torch.Tensor:
     """The frequency-weighted MSE of the denoised central frames, with the
-    near-clean windows upweighted under ``clean_loss_boost``."""
+    near-clean windows upweighted under ``clean_loss_boost``: normalised
+    to mean 1 over the global batch under a ``mesh``.  ``rows`` places
+    this rank's examples for the embedding jitter
+    (``NHANSNet.forward``)."""
     W = cfg.model.window_frames
-    res = model(ex["mixed"], ex["ctx_a"], ex["ctx_b"], embed_noise=embed_noise)
+    res = model(ex["mixed"], ex["ctx_a"], ex["ctx_b"], embed_noise=embed_noise,
+                noise_rows=rows)
     center = ex["mixed"][:, W // 2, :]
     loss, ex_loss = freq_weighted_mse(center + res, ex["target"])
     boost = cfg.train.clean_loss_boost
@@ -79,13 +99,44 @@ def train_loss(cfg: Config, model: NHANSNet, ex: Dict[str, torch.Tensor],
         d = torch.mean(torch.abs(center - ex["target"]), dim=-1)
         wts = 1.0 + boost * torch.sigmoid(
             (cfg.train.clean_loss_dist - d) / cfg.train.clean_loss_scale)
-        wts = wts / torch.mean(wts)
+        group = mesh.data_group if mesh is not None else None
+        wts = wts / all_reduce_mean(torch.mean(wts), group)
         loss = torch.mean(ex_loss * wts)
     return loss
 
 
+def _average_grads(grads: Dict[str, torch.Tensor], group
+                   ) -> Dict[str, torch.Tensor]:
+    """The gradients averaged over ``group``, in one all-reduce of a flat
+    float32 buffer."""
+    if group is None:
+        return grads
+    flat = torch.cat([g.reshape(-1).to(torch.float32)
+                      for g in grads.values()])
+    dist.all_reduce(flat, group=group)
+    flat /= dist.get_world_size(group)
+    out, at = {}, 0
+    for k, g in grads.items():
+        out[k] = flat[at:at + g.numel()].view_as(g).to(g.dtype)
+        at += g.numel()
+    return out
+
+
+def _global_norm(grads: Dict[str, torch.Tensor], shards: dict,
+                 model_group) -> torch.Tensor:
+    """The norm of the whole gradient: the replicated tensors' squares
+    plus the model-axis blocks' squares summed over the model group."""
+    total = sum(torch.sum(g * g) for k, g in grads.items()
+                if k not in shards)
+    if shards:
+        blocks = sum(torch.sum(grads[k] * grads[k]) for k in shards)
+        dist.all_reduce(blocks, group=model_group)
+        total = total + blocks
+    return torch.sqrt(total)
+
+
 def make_train_step(cfg: Config, model: NHANSNet, tx: Optimizer,
-                    banked: bool = False):
+                    banked: bool = False, mesh=None):
     """The step function.
 
     ``step(state, batch, generator) -> metrics``, where ``batch`` holds
@@ -100,36 +151,51 @@ def make_train_step(cfg: Config, model: NHANSNet, tx: Optimizer,
     the context-embedding jitter's); ``draws`` may supply the batch's
     instead (``data.pipeline.draw_train_batch``).  The state is updated
     in place; ``metrics`` holds the loss and the global gradient norm as
-    0-d device tensors, so that nothing synchronises the host."""
+    0-d device tensors, so that nothing synchronises the host.
+
+    With a ``mesh`` (the model already on it, ``create_state``), ``batch``
+    and ``idx`` are this rank's rows of the global batch, every rank
+    passes a generator in the same state, and ``draws`` (if given) are
+    the global batch's."""
     noise = cfg.model.ctx_embed_noise > 0.0
+    data_group = mesh.data_group if mesh is not None else None
+    shards = model_shards(model) if mesh is not None else {}
 
     def core(state: TrainState, batch: Dict[str, torch.Tensor],
              generator: torch.Generator, draws=None
              ) -> Dict[str, torch.Tensor]:
         with full_float32():
+            B = batch["clean"].shape[0]
+            rows = None
+            if mesh is not None:
+                rows = (mesh.data_index * B, mesh.data * B)
             ex = make_train_batch(cfg, batch["clean"], batch["noise_a"],
                                   batch["noise_b"], batch["clean_len"],
                                   batch["len_a"], batch["len_b"],
                                   peaks=batch.get("peaks"), draws=draws,
-                                  generator=generator)
+                                  generator=generator, rows=rows)
             model.train()
             for p in state.params.values():
                 p.grad = None
-            loss = train_loss(cfg, model, ex,
-                              generator if noise else None)
+            if rows is not None:  # in examples: B utterances x K crops
+                n = ex["mixed"].shape[0]
+                rows = (mesh.data_index * n, mesh.data * n)
+            loss = train_loss(cfg, model, ex, generator if noise else None,
+                              mesh, rows)
             loss.backward()
             with torch.no_grad():
                 grads = {k: (p.grad if p.grad is not None
                              else torch.zeros_like(p))
                          for k, p in state.params.items()}
-                gnorm = torch.sqrt(sum(torch.sum(g * g)
-                                       for g in grads.values()))
+                grads = _average_grads(grads, data_group)
+                gnorm = _global_norm(grads, shards, mesh and mesh.model_group)
                 updates, state.opt_state = tx.update(grads, state.opt_state)
                 for k, p in state.params.items():
                     p.add_(updates[k])
                     p.grad = None
         state.step += 1
-        return {"loss": loss.detach(), "grad_norm": gnorm}
+        return {"loss": all_reduce_mean(loss.detach(), data_group),
+                "grad_norm": gnorm}
 
     if not banked:
         return core

@@ -27,6 +27,15 @@
 * With ``profile_dir``, a ``torch.profiler`` trace (CPU and, on a card,
   CUDA activities) of steps 10 to 20 is written there as Chrome-trace
   JSON; a run that ends before step 20 writes what it traced.
+* Several ranks (``mesh``, ``parallel/``): the global batch of
+  ``batch_utts`` utterances is rounded up to a multiple of the data axis
+  and each rank feeds its ``local_utts`` (the banked stream's rows of the
+  global draw, or the streaming loader on its manifest shard).  Rank 0
+  writes the checkpoint (full tensors) while the others wait at a
+  barrier, and every rank auto-resumes from it.  Evaluation, wav dumps,
+  the metrics record, the profiler trace and the printed lines are rank
+  0's; the evaluation thread runs no collective.  ``step_device_ms``
+  is rank 0's own step.
 """
 
 from __future__ import annotations
@@ -44,56 +53,90 @@ from nhans_tpu_torch.data.banks import (BankIndexLoader, DeviceBanks,
 from nhans_tpu_torch.data.loader import (EvalLoader, TrainLoader,
                                          prefetch_to_device)
 from nhans_tpu_torch.models import build_model
+from nhans_tpu_torch.parallel.mesh import (Mesh, barrier, local_batch_size,
+                                           make_mesh)
+from nhans_tpu_torch.parallel.sharding_rules import (cut_full, gather_full,
+                                                     model_shards)
 from nhans_tpu_torch.train import checkpoint as ckpt
 from nhans_tpu_torch.train.evaluate import Evaluator
 from nhans_tpu_torch.train.metrics import MetricsWriter, Monitor
-from nhans_tpu_torch.train.step import (create_state, make_train_step,
-                                        param_counts, state_of,
-                                        step_generator)
+from nhans_tpu_torch.train.step import (TrainState, create_state,
+                                        make_train_step, param_counts,
+                                        state_of, step_generator)
 from nhans_tpu_torch.utils.device import resolve_device
 from nhans_tpu_torch.utils.watchdog import Heartbeat
 
 
 class Trainer:
     """``eval_utts``: utterances a scoring pass takes (None: the whole
-    eval split); ``eval_kwargs``: the ``Evaluator``'s own arguments."""
+    eval split); ``eval_kwargs``: the ``Evaluator``'s own arguments;
+    ``mesh``: the ranks' layout (default: ``make_mesh`` of the config's
+    ``data_axis`` and ``model_axis`` over the world, one rank without a
+    process group)."""
 
     def __init__(self, cfg: Config, eval_utts: Optional[int] = 16,
-                 device="cuda", eval_kwargs: Optional[dict] = None):
+                 device="cuda", eval_kwargs: Optional[dict] = None,
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg
         t = cfg.train
         self.device = resolve_device(device)
+        self.mesh = mesh or make_mesh(t.data_axis or None, t.model_axis)
+        self.primary = self.mesh.is_primary
         self.eval_utts = eval_utts
         init = torch.Generator()
         init.manual_seed(cfg.data.seed)
-        self.model, self.state, self.tx = create_state(cfg, init,
-                                                       self.device)
+        self.model, self.state, self.tx = create_state(
+            cfg, init, self.device, self.mesh)
+        self.shards = model_shards(self.model)
         self.banked = banks_enabled(cfg)
         self.step_fn = make_train_step(cfg, self.model, self.tx,
-                                       banked=self.banked)
+                                       banked=self.banked, mesh=self.mesh)
         self.ckpt = ckpt.Checkpointer(t.checkpoint_dir,
                                       t.checkpoints_to_keep, t.model_name)
-        self.evaluator = Evaluator(cfg, build_model(cfg).to(self.device),
-                                   **(eval_kwargs or {}))
+        self.evaluator = self.writer = self.monitor = None
+        if self.primary:
+            self.evaluator = Evaluator(cfg, build_model(cfg).to(self.device),
+                                       **(eval_kwargs or {}))
+            self.writer = MetricsWriter(t.summaries_dir, t.model_name)
+            self.monitor = Monitor(t.train_monitor_every, self.writer)
         self._eval_thread: Optional[threading.Thread] = None
         self._eval_error: Optional[BaseException] = None
-        self.writer = MetricsWriter(t.summaries_dir, t.model_name)
-        self.monitor = Monitor(t.train_monitor_every, self.writer)
         self.tstep = 0
         self.trace_path: Optional[str] = None  # the profiler's trace
         self.decoder: Optional[str] = None  # "native" or "numpy", in train
-        # utterances a step: train_mb // slices_per_step, at least 1
-        self.batch_utts = max(t.train_mb // cfg.data.slices_per_step, 1)
+        # utterances a step: train_mb // slices_per_step, at least 1,
+        # rounded up to a multiple of the data axis; each rank feeds its
+        # share
+        self.local_utts = local_batch_size(
+            max(t.train_mb // cfg.data.slices_per_step, 1), self.mesh)
+        self.batch_utts = self.local_utts * self.mesh.data
 
-        trainable, non_trainable = param_counts(self.state)
-        print(f"#trainable variables: {trainable}")
-        print(f"#non-trainable variables: {non_trainable}")
+        trainable, non_trainable = param_counts(self._full_state())
+        self._say(f"#trainable variables: {trainable}")
+        self._say(f"#non-trainable variables: {non_trainable}")
         self._restore()
+
+    def _say(self, msg: str) -> None:
+        if self.primary:
+            print(msg)
+
+    def _full_state(self) -> TrainState:
+        """The state with every model-axis block joined to its full tensor
+        (a collective over the model group; the state itself without the
+        model axis)."""
+        if not self.shards:
+            return self.state
+        s = self.state
+        opt = {k: (v if k == "count" else gather_full(v, self.shards))
+               for k, v in s.opt_state.items()}
+        return TrainState(step=s.step,
+                          params=gather_full(s.params, self.shards),
+                          batch_stats=s.batch_stats, opt_state=opt)
 
     def _restore(self) -> None:
         t = self.cfg.train
         if t.restore_path:
-            print(f"Restoring model from {t.restore_path}")
+            self._say(f"Restoring model from {t.restore_path}")
             variables, extra = ckpt.load(t.restore_path)
             ckpt.load_into(self.model, variables)
             if extra is not None:
@@ -103,20 +146,23 @@ class Trainer:
                 # optimizer
                 self.state = state_of(self.model, self.tx)
                 self.tstep = 0
-                print("Restored inference variables only "
-                      "(fine-tune: fresh optimizer, step 0)")
+                self._say("Restored inference variables only "
+                          "(fine-tune: fresh optimizer, step 0)")
         elif self.ckpt.latest_step() is not None:
             step, variables, extra = self.ckpt.restore()
             ckpt.load_into(self.model, variables)
             self._load_train_state(extra)
-            print(f"Auto-resumed from checkpoint step {step}")
+            self._say(f"Auto-resumed from checkpoint step {step}")
 
     def _load_train_state(self, extra: dict) -> None:
         alg = str(extra["alg"])
         if alg != self.cfg.train.alg.lower():
             raise ValueError(f"checkpoint was trained with --alg {alg}, "
                              f"this run asks for {self.cfg.train.alg}")
-        self.state.opt_state = ckpt.opt_state_from_flat(extra, self.device)
+        opt = ckpt.opt_state_from_flat(extra, self.device)
+        self.state.opt_state = {
+            k: (v if k == "count" else cut_full(v, self.shards))
+            for k, v in opt.items()}
         self.state.step = self.tstep = int(extra["step"])
 
     def _beat(self, phase: str) -> None:
@@ -125,10 +171,17 @@ class Trainer:
             hb.beat(phase)
 
     def save_and_eval(self, async_eval: bool = False) -> None:
-        print("Saving the model")
+        """Every rank calls it: rank 0 saves and scores, the others wait
+        for the checkpoint at a barrier."""
+        self._say("Saving the model")
         self._beat(f"save(step {self.tstep})")
-        path = self.ckpt.save(self.tstep, self.state, self.cfg.train.alg)
-        print(f"checkpoint written: {path}")
+        full = self._full_state()
+        if self.primary:
+            path = self.ckpt.save(self.tstep, full, self.cfg.train.alg)
+            print(f"checkpoint written: {path}")
+        barrier()
+        if not self.primary:
+            return
         step = self.tstep
         # the previous evaluation reads the evaluator's weights to its end
         self._join_eval()
@@ -137,7 +190,8 @@ class Trainer:
             return
         self._beat(f"eval(step {step})")
         # the snapshot: copies queued on this stream after the step
-        self.evaluator.model.load_state_dict(self.model.state_dict())
+        self.evaluator.model.load_state_dict({**full.params,
+                                              **full.batch_stats})
         if not async_eval:
             self._eval(step)
             return
@@ -192,21 +246,26 @@ class Trainer:
     def train(self) -> None:
         cfg, t = self.cfg, self.cfg.train
         banks = None
+        shard = (self.mesh.data_index, self.mesh.data)
         if self.banked:
             dbanks = DeviceBanks(cfg, self.device)
             banks = dbanks.banks
-            print(f"device corpus banks: {len(dbanks.speech_paths)} speech"
-                  f" + {len(dbanks.noise_paths)} noise files, "
-                  f"{dbanks.nbytes >> 20} MB on {self.device}")
+            self._say(f"device corpus banks: {len(dbanks.speech_paths)} "
+                      f"speech + {len(dbanks.noise_paths)} noise files, "
+                      f"{dbanks.nbytes >> 20} MB on {self.device}")
             loader = BankIndexLoader(dbanks, self.batch_utts,
-                                     start_step=self.tstep)
+                                     start_step=self.tstep, shard=shard)
             self.decoder = dbanks.decoder
         else:
-            loader = TrainLoader(cfg, self.batch_utts)
+            # the model ranks of a data index must see the same rows: one
+            # worker thread makes the stream's order its seed's
+            workers = 1 if self.mesh.model > 1 else None
+            loader = TrainLoader(cfg, self.local_utts, shard=shard,
+                                 num_workers=workers)
             self.decoder = loader.decoder
-        print(f"wav decoder: {self.decoder}")
+        self._say(f"wav decoder: {self.decoder}")
         stream = prefetch_to_device(loader, self.device)
-        timed = self.device.type == "cuda"
+        timed = self.device.type == "cuda" and self.primary
 
         if t.eval_before_training:
             self.save_and_eval()
@@ -217,7 +276,8 @@ class Trainer:
         self._heartbeat = Heartbeat(name="trainer").start()
         try:
             while self.tstep < t.batches:
-                if t.profile_dir and self.tstep == 10 and profiler is None:
+                if (t.profile_dir and self.primary and self.tstep == 10
+                        and profiler is None):
                     profiler = self._start_profiler()
                 if profiler is not None and self.tstep >= 20:
                     self._stop_profiler(profiler)
@@ -240,7 +300,7 @@ class Trainer:
                     events[1].record(torch.cuda.current_stream(self.device))
                 self.tstep += 1
                 pending.append((metrics, input_wait, events))
-                if self.tstep % t.train_monitor_every == 0:
+                if self.tstep % t.train_monitor_every == 0 and self.primary:
                     if timed:
                         pending[-1][2][1].synchronize()
                     first = self.tstep - len(pending) + 1
@@ -251,6 +311,7 @@ class Trainer:
                             values["step_device_ms"] = ev[0].elapsed_time(
                                 ev[1])
                         self.monitor.update(first + i, values, iw)
+                if self.tstep % t.train_monitor_every == 0:
                     pending = []
                 if self.tstep % t.eval_every == 0:
                     self.save_and_eval(async_eval=t.async_eval)
@@ -268,7 +329,8 @@ class Trainer:
             finally:
                 stream.close()
                 loader.close()
-                self.writer.close()
+                if self.writer is not None:
+                    self.writer.close()
                 self._heartbeat.stop()
 
     def _start_profiler(self):

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 
 import torch
@@ -11,8 +12,13 @@ import torch
 def resolve_device(device="cuda") -> torch.device:
     """The torch device to run on.  Entry points default to ``cuda``; a
     machine without a card must ask for ``cpu`` explicitly, so serving
-    never carries on quietly on the CPU."""
+    never carries on quietly on the CPU.  In a ``torch.distributed``
+    world a bare ``cuda`` is the rank's own card, ``cuda:{LOCAL_RANK}``;
+    a device with an index stays as given (ranks that share a card)."""
     dev = torch.device(device)
+    if (dev.type == "cuda" and dev.index is None
+            and torch.distributed.is_initialized()):
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {str(dev)!r} requested but torch.cuda.is_available() "

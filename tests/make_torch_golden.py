@@ -5,6 +5,7 @@ them where JAX is not installed (the machine with the GPU).
     python tests/make_torch_golden.py train    # one training step
     python tests/make_torch_golden.py train_bf16  # the same in bfloat16
     python tests/make_torch_golden.py eval     # an evaluation pass
+    python tests/make_torch_golden.py dp       # a step over 2 data ranks
 
 The first runs ``nhans_tpu``'s ``Enhancer(out_wire="float32")`` with the
 shipped ``docs/quality/denoiser_q5_swa.npz`` on a seeded 1.5 s input and
@@ -42,9 +43,21 @@ reconstructions) and the ``denoised`` waveforms.
 ``tests/test_torch_eval_golden.py`` and ``chip_smoke.py`` hold the port
 to it through ``port_eval_golden``.
 
+The fourth (``dp``) takes one full-width sgd step of the JAX package's
+``make_train_step(mesh=make_mesh(data=2))`` on two CPU devices from the
+same weights, on two seeded utterances (``golden_dp_inputs``, one a data
+rank) x 2 crops, and writes ``tests/data/torch_golden_train_dp.npz`` with
+the training golden's keys.  ``chip_smoke.py`` holds the port's step on
+two ranks to it (``port_train_golden`` with a mesh).
+
+``run_ranks`` starts a function as the ranks of a ``torch.distributed``
+world, a process each, joined through a ``file://`` store in a temporary
+directory; the port's multi-process tests and ``chip_smoke.py`` use it.
+
 The helpers here (``golden_inputs``, ``jax_variables``, ``twin_configs``,
 ``jax_train_draws``, ``golden_eval_examples``) are shared by the port's
-tests.  ``golden_inputs`` and ``golden_eval_examples`` need numpy only.
+tests.  ``golden_inputs``, ``golden_eval_examples``, ``run_ranks`` and the
+``port_*`` functions need no JAX.
 """
 
 from __future__ import annotations
@@ -53,8 +66,10 @@ import dataclasses
 import glob
 import hashlib
 import os
+import subprocess
 import sys
 import tempfile
+import time
 
 import numpy as np
 
@@ -64,6 +79,8 @@ GOLDEN_TRAIN = os.path.join(REPO, "tests", "data", "torch_golden_train.npz")
 GOLDEN_TRAIN_BF16 = os.path.join(REPO, "tests", "data",
                                  "torch_golden_train_bf16.npz")
 GOLDEN_EVAL = os.path.join(REPO, "tests", "data", "torch_golden_eval.npz")
+GOLDEN_TRAIN_DP = os.path.join(REPO, "tests", "data",
+                               "torch_golden_train_dp.npz")
 DENOISER_NPZ = os.path.join(REPO, "docs", "quality", "denoiser_q5_swa.npz")
 SEPARATOR_NPZ = os.path.join(REPO, "docs", "quality", "separator_q5_swa.npz")
 SEED = 20240
@@ -126,6 +143,13 @@ def golden_train_inputs(seed: int = TRAIN_SEED) -> dict:
         [np.abs(batch[k]).max(1) for k in ("clean", "noise_a", "noise_b")],
         axis=1).astype(np.float32)
     return batch
+
+
+def golden_dp_inputs() -> dict:
+    """The data-parallel golden's batch (B = 2): ``golden_train_inputs``
+    of two seeds, stacked; one utterance a data rank."""
+    a, b = golden_train_inputs(TRAIN_SEED), golden_train_inputs(TRAIN_SEED + 1)
+    return {k: np.concatenate([a[k], b[k]]) for k in a}
 
 
 def input_digest(*arrays) -> str:
@@ -205,12 +229,14 @@ def jax_golden_run() -> dict:
 
 def jax_train_golden(dtype: str = "float32", perturb: float = 0.0,
                      perturb_seed: int = TRAIN_SEED,
-                     strict: bool = False) -> dict:
+                     strict: bool = False, data: int = 1) -> dict:
     """One sgd step of the JAX package at full width (CPU) from the
     shipped denoiser weights on ``golden_train_inputs``, computed in
     ``dtype``; with ``perturb``, from the weights each times
     (1 + perturb x a standard normal draw seeded by ``perturb_seed``);
-    with ``strict``, compiled with ``xla_allow_excess_precision`` off."""
+    with ``strict``, compiled with ``xla_allow_excess_precision`` off;
+    with ``data`` = 2, on ``golden_dp_inputs`` under
+    ``make_mesh(data=2)`` (the JAX process needs two devices)."""
     import jax
     import jax.numpy as jnp
 
@@ -232,10 +258,19 @@ def jax_train_golden(dtype: str = "float32", perturb: float = 0.0,
                        params=variables["params"],
                        batch_stats=variables["batch_stats"],
                        opt_state=tx.init(variables["params"]))
-    step = make_train_step(jcfg, build_model(jcfg), tx, donate=False)
-    batch = golden_train_inputs()
+    batch = golden_train_inputs() if data == 1 else golden_dp_inputs()
     key = jax.random.PRNGKey(TRAIN_SEED)
-    args = (state, {k: jnp.asarray(v) for k, v in batch.items()}, key)
+    if data == 1:
+        step = make_train_step(jcfg, build_model(jcfg), tx, donate=False)
+        args = (state, {k: jnp.asarray(v) for k, v in batch.items()}, key)
+    else:
+        from nhans_tpu.parallel.mesh import (make_mesh, replicated_sharding,
+                                             shard_batch)
+        mesh = make_mesh(data=data)
+        step = make_train_step(jcfg, build_model(jcfg), tx, mesh=mesh,
+                               donate=False)
+        args = (jax.device_put(state, replicated_sharding(mesh)),
+                shard_batch(mesh, batch), key)
     if strict:
         step = step.lower(*args).compile(
             {"xla_allow_excess_precision": False})
@@ -250,7 +285,8 @@ def jax_train_golden(dtype: str = "float32", perturb: float = 0.0,
            "input_sha256": np.array(input_digest(*batch.values())),
            "loss": np.float32(metrics["loss"]),
            "grad_norm": np.float32(metrics["grad_norm"])}
-    for k, v in jax_train_draws(jcfg, key, 1, TRAIN_SLICES).items():
+    n = len(batch["clean"])
+    for k, v in jax_train_draws(jcfg, key, n, TRAIN_SLICES).items():
         out[f"draws/{k}"] = v
     for path in TRAIN_LAYERS:
         out[f"delta/{path}"] = (at(new.params, path)
@@ -284,15 +320,22 @@ def train_gap(ref: dict, other: dict, prefix: str) -> dict:
     return out
 
 
-def port_train_golden(device="cpu", golden=None, dtype="float32") -> dict:
+def port_train_golden(device="cpu", golden=None, dtype="float32",
+                      mesh=None) -> dict:
     """The port's train step on the training golden's inputs and draws,
     from the same weights, on ``device``, computed in ``dtype``: the
-    file's keys, computed by the port.  Needs torch only."""
+    file's keys, computed by the port.  With a ``mesh`` (a data-parallel
+    golden and a process group), this rank's rows through the mesh step.
+    Needs torch only."""
     import torch
 
     from nhans_tpu_torch.compat.weights import load_npz, to_flax
     from nhans_tpu_torch.config import Config
     from nhans_tpu_torch.models import build_model
+    from nhans_tpu_torch.parallel.mesh import shard_batch
+    from nhans_tpu_torch.parallel.sharding_rules import (gather_full,
+                                                         model_shards,
+                                                         shard_model)
     from nhans_tpu_torch.train.step import (make_train_step, make_tx,
                                             state_of)
 
@@ -308,15 +351,21 @@ def port_train_golden(device="cpu", golden=None, dtype="float32") -> dict:
     model.load_state_dict(load_npz(DENOISER_NPZ))
     model.to(device)
     before = to_flax(dict(model.named_parameters()), "params")
+    if mesh is not None:
+        shard_model(model, mesh)
     tx = make_tx(cfg)
     state = state_of(model, tx)
-    batch = {k: torch.from_numpy(v).to(device)
-             for k, v in golden_train_inputs().items()}
     draws = {k[len("draws/"):]: torch.from_numpy(np.array(v))
              for k, v in golden.items() if k.startswith("draws/")}
-    metrics = make_train_step(cfg, model, tx)(state, batch, None,
-                                              draws=draws)
-    after = to_flax(dict(model.named_parameters()), "params")
+    inputs = (golden_train_inputs() if len(draws["snr_a"]) == 1
+              else golden_dp_inputs())
+    if mesh is not None:
+        inputs = shard_batch(mesh, inputs)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in inputs.items()}
+    metrics = make_train_step(cfg, model, tx, mesh=mesh)(state, batch, None,
+                                                         draws=draws)
+    after = to_flax(gather_full(dict(model.named_parameters()),
+                                model_shards(model)), "params")
     stats = to_flax(dict(model.named_buffers()), "stats")
     out = {"loss": float(metrics["loss"]),
            "grad_norm": float(metrics["grad_norm"])}
@@ -436,9 +485,196 @@ def port_eval_golden(device="cpu") -> dict:
         return _eval_record(metrics, dump, scoring)
 
 
+def run_ranks(world: int, target: str, *args, backend: str = "auto",
+              timeout: float = 120.0, env=None) -> list:
+    """Run ``target`` ("module:function", importable from the repository's
+    root) as the ``world`` ranks of a ``torch.distributed`` world, one
+    process each: ``function(rank, world, *args)`` after the process has
+    joined the world through a ``file://`` store in a temporary directory
+    (``backend`` "auto" lets ``initialize_multihost`` choose).  Each rank
+    gets ``LOCAL_RANK`` = its rank and ``LOCAL_WORLD_SIZE`` = ``world``.
+    Waits for every rank; a rank that fails, or a run past ``timeout``
+    seconds, stops the others and raises with the outputs.  Returns each
+    rank's output (stdout and stderr)."""
+    with tempfile.TemporaryDirectory(prefix="nhans_ranks_") as tmp:
+        store = f"file://{tmp}/store"
+        code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+                "from tests.make_torch_golden import _rank_main; _rank_main()")
+        procs, logs = [], []
+        for r in range(world):
+            log = open(os.path.join(tmp, f"rank{r}.log"), "w+")
+            logs.append(log)
+            penv = dict(os.environ, **(env or {}), LOCAL_RANK=str(r),
+                        LOCAL_WORLD_SIZE=str(world))
+            penv["PYTHONPATH"] = REPO + os.pathsep + penv.get("PYTHONPATH",
+                                                              "")
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", code, REPO, target, str(world), str(r),
+                 store, backend, *map(str, args)], cwd=REPO, env=penv,
+                stdout=log, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + timeout
+        failed = None
+        try:
+            while any(p.poll() is None for p in procs):
+                bad = [r for r, p in enumerate(procs)
+                       if p.poll() not in (None, 0)]
+                if bad:
+                    failed = f"rank {bad[0]} exited with {procs[bad[0]].returncode}"
+                    break
+                if time.monotonic() > deadline:
+                    failed = f"ranks still running after {timeout} s"
+                    break
+                time.sleep(0.05)
+            else:
+                bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+                if bad:
+                    failed = f"rank {bad[0]} exited with {procs[bad[0]].returncode}"
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+            for p in procs:
+                p.wait()
+        outs = []
+        for log in logs:
+            log.seek(0)
+            outs.append(log.read())
+            log.close()
+    if failed:
+        raise RuntimeError(f"{target} on {world} ranks: {failed}\n" + "\n".join(
+            f"--- rank {r} ---\n{o[-4000:]}" for r, o in enumerate(outs)))
+    return outs
+
+
+def _rank_main() -> None:
+    """The body of a ``run_ranks`` process: argv is the repository, the
+    target, the world size, the rank, the store, the backend and the
+    target's arguments."""
+    import importlib
+
+    import torch.distributed as dist
+
+    from nhans_tpu_torch.parallel.mesh import initialize_multihost
+
+    _, target, world, r, store, backend, *args = sys.argv[1:]
+    initialize_multihost(store, int(world), int(r),
+                         None if backend == "auto" else backend)
+    module, name = target.split(":")
+    try:
+        getattr(importlib.import_module(module), name)(int(r), int(world),
+                                                       *args)
+    finally:
+        dist.destroy_process_group()
+
+
+# biases whose exact gradient is zero (a BatchNorm takes the shift out):
+# their updates are rounding noise, compared by nothing
+NOISE_BIASES = ("conv2.b", "transform.b", "proj_a.b", "proj_b.b")
+
+
+def _spec(path: str) -> dict:
+    """A rank's instructions, pickled by the test or script that started
+    it (``run_ranks``)."""
+    import pickle
+
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def rank_steps(rank: int, world: int, spec_path: str) -> None:
+    """One rank of a mesh train step, for ``run_ranks``.  The spec holds
+    ``cfg`` (a port Config), the mesh's ``data`` and ``model`` sizes,
+    ``min_channels`` of the model axis's rule, flat flax ``variables``,
+    the global batch (``batch``, or ``banks`` and the index triples
+    ``idx``) and its global ``draws``, ``steps`` and ``out``.  Every rank
+    writes ``<out>.<rank>.npz``: each step's loss and gradient norm, the
+    full parameters and statistics after the steps (flat flax keys, as
+    ``compat.weights.to_flax`` writes them) and the shape of each block it
+    holds (``block/<state_dict name>``)."""
+    import torch
+
+    from nhans_tpu_torch.compat.weights import to_flax
+    from nhans_tpu_torch.models import build_model
+    from nhans_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from nhans_tpu_torch.parallel.sharding_rules import (gather_full,
+                                                         model_shards,
+                                                         shard_model)
+    from nhans_tpu_torch.train.checkpoint import load_into
+    from nhans_tpu_torch.train.step import (make_train_step, make_tx,
+                                            state_of)
+
+    torch.set_num_threads(1)
+    spec = _spec(spec_path)
+    cfg = spec["cfg"]
+    mesh = make_mesh(spec["data"], spec["model"])
+    model = build_model(cfg)
+    load_into(model, spec["variables"])
+    shard_model(model, mesh, spec["min_channels"])
+    tx = make_tx(cfg)
+    state = state_of(model, tx)
+    banked = "banks" in spec
+    step = make_train_step(cfg, model, tx, banked=banked, mesh=mesh)
+
+    def tensors(d):
+        return {k: torch.from_numpy(np.array(v)) for k, v in d.items()}
+
+    draws = tensors(spec["draws"])
+    out = {"loss": [], "grad_norm": []}
+    for _ in range(spec["steps"]):
+        if banked:
+            m = step(state, tensors(spec["banks"]),
+                     tensors(shard_batch(mesh, spec["idx"])), None,
+                     draws=draws)
+        else:
+            m = step(state, tensors(shard_batch(mesh, spec["batch"])), None,
+                     draws=draws)
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+    shards = model_shards(model)
+    out.update(to_flax(gather_full(dict(model.named_parameters()), shards),
+                       "params"))
+    out.update(to_flax(dict(model.named_buffers()), "batch_stats"))
+    out.update({f"block/{k}": np.array(state.params[k].shape)
+                for k in shards})
+    np.savez(f"{spec['out']}.{rank}.npz", **out)
+
+
+def rank_trainer(rank: int, world: int, spec_path: str) -> None:
+    """One rank of a ``Trainer`` on the CPU, for ``run_ranks``: trains
+    ``cfg`` (from the spec) to its ``batches`` steps, then builds a second
+    Trainer on the same directories, which auto-resumes.  Writes
+    ``<out>.<rank>.npz``: the steps reached and resumed at, whether the
+    run was banked, its local utterance count and the resumed
+    parameters."""
+    import torch
+
+    from nhans_tpu_torch.train.trainer import Trainer
+
+    torch.set_num_threads(1)
+    spec = _spec(spec_path)
+    kw = dict(eval_utts=spec["eval_utts"], device="cpu",
+              eval_kwargs=spec["eval_kwargs"])
+    tr = Trainer(spec["cfg"], **kw)
+    tr.train()
+    again = Trainer(spec["cfg"], **kw)
+    np.savez(f"{spec['out']}.{rank}.npz", tstep=tr.tstep,
+             resumed=again.tstep, banked=tr.banked,
+             local_utts=tr.local_utts, batch_utts=tr.batch_utts,
+             evaluator=tr.evaluator is not None,
+             **{f"params/{k}": v.detach().numpy()
+                for k, v in again.model.state_dict().items()})
+
+
 def main() -> None:
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     sys.path.insert(0, REPO)
+    if sys.argv[1:] == ["dp"]:
+        os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " "
+                                   "--xla_force_host_platform_device_count=2")
+        np.savez_compressed(GOLDEN_TRAIN_DP, **jax_train_golden(data=2))
+        print(f"wrote {GOLDEN_TRAIN_DP} "
+              f"({os.path.getsize(GOLDEN_TRAIN_DP)} bytes)")
+        return
     if sys.argv[1:] == ["train"]:
         np.savez_compressed(GOLDEN_TRAIN, **jax_train_golden())
         print(f"wrote {GOLDEN_TRAIN} ({os.path.getsize(GOLDEN_TRAIN)} bytes)")

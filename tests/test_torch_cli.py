@@ -66,7 +66,7 @@ def test_help_has_reference_flags(task):
     assert r.returncode == 0, r.stderr
     for flag in ("--input", "--output", "--pos", "--neg", "--compensate",
                  "--ac", "--Fs", "--checkpoint", "--demo", "--device",
-                 "--recon_residual_cap"):
+                 "--recon_residual_cap", "--mesh"):
         assert flag in r.stdout, flag
 
 

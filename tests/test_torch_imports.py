@@ -35,7 +35,7 @@ def test_every_module_imports_with_jax_blocked():
     r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    # config, 11 subpackages, dsp/{spectral,mixing},
+    # config, 12 subpackages, dsp/{spectral,mixing},
     # ops/{_build,stft_cuda}, nn/{blocks,model}, compat/weights,
     # infer/enhance,
     # utils/{device,wavio,tb_events,watchdog,scoring,pesq_np,native},
@@ -43,8 +43,8 @@ def test_every_module_imports_with_jax_blocked():
     # data/{manifest,banks,loader,pipeline},
     # train/{optim,step,checkpoint,metrics,trainer,evaluate},
     # tools/{devtime,profile_serving,profile_training,spectrogram_anatomy,
-    #        eval_checkpoints}
-    assert int(r.stdout.strip()) == 48
+    #        eval_checkpoints}, parallel/{mesh,sharding_rules}
+    assert int(r.stdout.strip()) == 51
 
 
 @pytest.mark.parametrize("path", PORT_SOURCES)

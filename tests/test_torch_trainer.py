@@ -350,6 +350,10 @@ def test_eval_utts_zero_writes_zeros_and_reads_no_eval_data(tmp_path,
 @pytest.mark.parametrize("flags", [
     ["--data_axis", "2"], ["--model_axis", "2"], ["--multihost"]])
 def test_cli_refusals_are_messages(tmp_path, capsys, flags):
+    """A mesh that the world (one process here) cannot hold, and
+    --multihost without its three flags, exit with a message naming
+    them; the mesh itself is tested on several processes in
+    tests/test_torch_parallel_*.py."""
     speech, noise = _corpus(tmp_path)
     with pytest.raises(SystemExit) as exit_info:
         cli_train.build_trainer(
@@ -357,7 +361,14 @@ def test_cli_refusals_are_messages(tmp_path, capsys, flags):
              "--noise_wav_dir", noise, "--checkpoint_dir",
              str(tmp_path / "ck"), "--summaries_dir", str(tmp_path / "s"),
              *flags])
-    assert "ROADMAP.md" in str(exit_info.value.code)
+    msg = str(exit_info.value.code)
+    if flags == ["--multihost"]:
+        assert "--coordinator" in msg and "--num_processes" in msg
+    else:
+        data = "2" if flags[0] == "--data_axis" else "0"
+        model = "2" if flags[0] == "--model_axis" else "1"
+        assert f"--data_axis {data} x --model_axis {model}" in msg
+        assert "the world has 1" in msg
 
 
 def test_cli_needs_a_card_unless_asked_for_the_cpu(tmp_path, capsys):
