@@ -45,7 +45,17 @@ drives the port's two main paths at full width:
   and peak memory, data=1 x model=2 against the 1-rank steps, and
   ``cli.train`` on both ranks with a checkpoint and an auto-resume; the
   Enhancer split over two replicas; with two cards or more, the same over
-  NCCL and the denoiser command line with --mesh auto.
+  NCCL and the denoiser command line with --mesh auto;
+* model preparation and the checkpoint tools (phase 16): the shipped
+  weights written as TF bundles, converted by ``nhans_tpu_torch.cli.
+  load_denoiser``/``load_separator`` (every tensor exact) and served from
+  the converted directory against phase 7's output; the serving command
+  lines without a checkpoint against the JAX package's PRNGKey(0) output
+  (tests/data/torch_golden_random_init.npz) and ``cli.evaluate`` without
+  one; ``tools/ckpt_average`` and ``tools/ckpt_npz`` on phase 9's step
+  directories and the averaged directory served; ``tools/validate_demo``
+  on a synthetic DEMO_N-HANS tree against the plain spectrogram; and
+  ``tools/train_supervisor`` in two chunks against phase 9's run.
 
 Any failed check raises, and the script exits non-zero without its result
 line.  Without a CUDA card, or without the rest of the repository, it
@@ -61,6 +71,7 @@ The script writes nothing into the repository apart from build/.
 """
 
 import dataclasses
+import io
 import json
 import os
 import re
@@ -69,7 +80,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, redirect_stderr, redirect_stdout
 
 import numpy as np
 
@@ -145,6 +156,10 @@ FREQ_PAD = 256
 # against the plain spectrogram, the JAX package's golden pass (CPU), the
 # trainer's other pass and cli.evaluate: |diff| <= SNR_RTOL x max(|value|,
 # 1); reconstructions within WAVE_ATOL
+
+# phase 16: served waveforms of the TF-converted weights against the same
+# weights from the .npz (phase 7): the same values through the same code
+CONVERTED_ATOL = 1e-6
 
 SR = 16000
 
@@ -711,6 +726,314 @@ def phase15(tmp, corpus, smi, count, tgold, banked_losses, served):
             "launches_rank1": res[1]["launches"]}
 
 
+@contextmanager
+def kernel_shapes(stft_cuda):
+    """Record the input shape of every spectrogram kernel call.  The
+    wrapper counts its launches on the module's ``log_spectrogram_kernel``
+    (the recorder here), whose count goes back to the wrapper after."""
+    kernel, shapes = stft_cuda.log_spectrogram_kernel, []
+
+    def recorded(x, with_reim=False):
+        shapes.append((tuple(x.shape), with_reim))
+        return kernel(x, with_reim)
+
+    recorded.launches = kernel.launches
+    stft_cuda.log_spectrogram_kernel = recorded
+    try:
+        yield shapes
+    finally:
+        stft_cuda.log_spectrogram_kernel = kernel
+        kernel.launches = recorded.launches
+
+
+def in_process(argv_main, argv):
+    """(stdout, stderr) of a command line's ``main`` run in this process,
+    so that its kernel launches are counted here."""
+    out, err = io.StringIO(), io.StringIO()
+    with redirect_stdout(out), redirect_stderr(err):
+        argv_main(argv)
+    return out.getvalue(), err.getvalue()
+
+
+def served_wavs(run_dir, task, checkpoint, stft_cuda, wavs):
+    """``cli.<task>`` run in this process on ``wavs`` (in, pos, neg int16
+    arrays; pos None for none) with ``checkpoint`` ("" for none): (its
+    output wavs by tag, stdout, stderr, kernel launches, kernel input
+    shapes)."""
+    import torch
+    from scipy.io import wavfile
+
+    from nhans_tpu_torch.cli._app import run
+
+    os.makedirs(run_dir)
+    paths = {}
+    for name, x in zip(("in", "pos", "neg"), wavs):
+        paths[name] = os.path.join(run_dir, f"{name}.wav") if x is not None \
+            else ""
+        if x is not None:
+            wavfile.write(paths[name], SR, x)
+    out_wav = os.path.join(run_dir, "out.wav")
+    argv = ["--input", paths["in"], "--pos", paths["pos"], "--neg",
+            paths["neg"], "--output", out_wav]
+    if checkpoint:
+        argv = ["--checkpoint", checkpoint, *argv]
+    torch.cuda.synchronize()
+    stft_cuda.log_spectrogram_kernel.launches = 0
+    with kernel_shapes(stft_cuda) as shapes:
+        stdout, stderr = in_process(lambda a: run(task, a), argv)
+    torch.cuda.synchronize()
+    launches = stft_cuda.log_spectrogram_kernel.launches
+    tags = ("", "_mixed_processed", "_removed") + (
+        ("_compensated",) if task == "denoiser" else ())
+    got = {}
+    for tag in tags:
+        rate, x = wavfile.read(os.path.join(run_dir, f"out{tag}.wav"))
+        check(rate == SR and x.dtype == np.float32 and np.isfinite(x).all(),
+              f"{task} out{tag}.wav format / finite")
+        got[tag] = x
+    return got, stdout, stderr, launches, shapes
+
+
+def phase16(tmp, corpus, smi, banked_losses, p7, phase5):
+    """Phase 16: model preparation and the checkpoint tools, on the card.
+
+    (a) The shipped weights as TF bundles through ``cli.load_denoiser`` and
+        ``cli.load_separator`` (two processes at once): every tensor of the
+        variables directories equals the ``.npz``'s; ``cli.denoiser
+        --checkpoint <dir>`` on phase 7's input within 1e-6 of phase 7's
+        output from the ``.npz``, 2 kernel launches.
+    (b) ``cli.denoiser`` and ``cli.separator`` with no checkpoint: the
+        WARNING, and the waveforms within WAVE_ATOL of the JAX package's
+        ``PRNGKey(0)`` output (tests/data/torch_golden_random_init.npz);
+        ``cli.evaluate`` with no checkpoint on phase 10's corpus.
+    (c) ``tools/ckpt_average`` of phase 9's steps 4 and 8 equals their
+        float64 mean; ``tools/ckpt_npz`` pack and unpack of step 8 (the
+        shipped file's keys and dtypes, params within float16 rounding,
+        batch_stats exact); the averaged directory serves.
+    (d) ``tools/validate_demo`` on a synthetic DEMO_N-HANS tree from phase
+        5's seeded signals, with the shipped weights, against the same
+        tool on the plain spectrogram.
+    (e) ``tools/train_supervisor --target 4 --chunk 2`` on phase 9's
+        corpus: two processes, step 4's loss against phase 9's
+        uninterrupted run at RESUME_RTOL.
+    Returns the launches and kernel input shapes of (a) and (d)."""
+    import torch
+
+    from nhans_tpu_torch.cli import evaluate as cli_evaluate
+    from nhans_tpu_torch.ops import stft_cuda
+    from nhans_tpu_torch.tools import ckpt_average, ckpt_npz, validate_demo
+    from nhans_tpu_torch.train.checkpoint import load
+    from tests.make_torch_golden import (DENOISER_NPZ, GOLDEN_RANDOM_INIT,
+                                         SEPARATOR_NPZ, input_digest,
+                                         random_init_inputs, write_demo_tree,
+                                         write_tf_bundle)
+
+    t0 = time.perf_counter()
+    parts = {}  # wall s of each part
+    root = os.path.join(tmp, "p16")
+    os.makedirs(root)
+
+    # (a) TF conversion, both tasks at once
+    procs, shipped = {}, {}
+    for task, npz in (("denoiser", DENOISER_NPZ),
+                      ("separator", SEPARATOR_NPZ)):
+        prefix = os.path.join(root, f"tf_{task}", "model-1000000")
+        os.makedirs(os.path.dirname(prefix))
+        shipped[task] = write_tf_bundle(npz, task, prefix)
+        procs[task] = subprocess.Popen(
+            [sys.executable, "-m", f"nhans_tpu_torch.cli.load_{task}",
+             "--tf_checkpoint", prefix, "--output",
+             os.path.join(root, f"{task}_ckpt")], cwd=REPO,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    for task, proc in procs.items():
+        out, err = proc.communicate(timeout=300)
+        check(proc.returncode == 0, f"load_{task} failed:\n{err}")
+        got, _ = load(os.path.join(root, f"{task}_ckpt"))
+        check(sorted(got) == sorted(shipped[task]), f"load_{task}: keys")
+        for key, value in shipped[task].items():
+            check(got[key].dtype == np.float32
+                  and np.array_equal(got[key], value),
+                  f"load_{task}: {key} differs from the .npz")
+    say(f"[16a convert] cli.load_denoiser / load_separator of the shipped "
+        f"weights as TF bundles ({len(shipped['denoiser'])} tensors each): "
+        "every tensor equal to the .npz's")
+    wavs_p7 = (p7["in"], None, p7["neg"])
+    conv, _, _, conv_launches, conv_shapes = served_wavs(
+        os.path.join(root, "serve_tf"), "denoiser",
+        os.path.join(root, "denoiser_ckpt"), stft_cuda, wavs_p7)
+    check(conv_launches == 2, f"converted serving: {conv_launches} launches")
+    errs = {}
+    for tag, want in p7["out"].items():
+        check(conv[tag].shape == want.shape, f"converted out{tag} shape")
+        errs[tag] = float(np.abs(conv[tag] - want).max())
+        check(errs[tag] <= CONVERTED_ATOL, f"converted serving out{tag}: "
+              f"{errs[tag]:.3g} from phase 7's")
+    say(f"  cli.denoiser --checkpoint <converted dir> on phase 7's input: "
+        f"{conv_launches} kernel launches ({conv_shapes}), max |diff| from "
+        "phase 7's .npz output " + ", ".join(
+            f"out{k}.wav {v:.3g}" for k, v in errs.items()))
+
+    parts["a"] = time.perf_counter() - t0
+
+    # (b) random initialisation
+    with np.load(GOLDEN_RANDOM_INIT) as z:
+        rgold = {k: z[k] for k in z.files}
+    ri = random_init_inputs()
+    check(str(rgold["input_sha256"]) == input_digest(
+        *(x.astype(np.float64) for x in ri)), "random-init golden inputs")
+    for task in ("denoiser", "separator"):
+        got, stdout, stderr, launches, _ = served_wavs(
+            os.path.join(root, f"random_{task}"), task, "", stft_cuda, ri)
+        check("WARNING: no --checkpoint given" in stderr,
+              f"{task}: no WARNING on stderr")
+        check(launches == 2, f"random-init {task}: {launches} launches")
+        errs = {}
+        for tag, key in (("", f"{task}/denoised"),
+                         ("_mixed_processed", "mixed_processed"),
+                         ("_removed", f"{task}/removed")):
+            check(got[tag].shape == rgold[key].shape, f"{task} {key} shape")
+            errs[key] = float(np.abs(got[tag] - rgold[key]).max())
+            check(errs[key] <= WAVE_ATOL, f"random-init {task} {key}: "
+                  f"{errs[key]:.3g}")
+        msg = ""
+        if task == "denoiser":
+            snr = float(stdout.splitlines()[0])
+            want = float(rgold["denoiser/snr_est"])
+            rel = abs(snr - want) / abs(want)
+            check(rel <= SNR_RTOL, f"random-init snr_est {snr} against {want}")
+            msg = f"; snr_est rel diff {rel:.3g}"
+        say(f"[16b random init] cli.{task} without --checkpoint: WARNING on "
+            "stderr; against the JAX PRNGKey(0) golden, max |diff| "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + msg)
+    stdout, stderr = in_process(cli_evaluate.main, [
+        "--speech_wav_dir", corpus[0], "--noise_wav_dir", corpus[1],
+        "--eval_utts", "4", "--wav_dump_folder", "", "--dump_results", ""])
+    check("WARNING: no --checkpoint given" in stderr, "cli.evaluate WARNING")
+    printed = dict(line.split(": ", 1) for line in stdout.splitlines()
+                   if ": " in line)
+    check({"eval_loss", "si_sdr", "stoi"} <= set(printed)
+          and all(np.isfinite(float(printed[k])) for k in printed),
+          f"cli.evaluate random init: {printed}")
+    say("  cli.evaluate without --checkpoint, 4 valid utterances: "
+        + ", ".join(f"{k} {float(v):.4f}" for k, v in printed.items()))
+
+    parts["b"] = time.perf_counter() - t0 - sum(parts.values())
+
+    # (c) checkpoint tools on phase 9's step directories
+    run_root = os.path.join(tmp, "ck_banked", "nhans")
+    steps = [load(os.path.join(run_root, str(s)))[0] for s in (4, 8)]
+    avg_dir = os.path.join(root, "avg")
+    in_process(ckpt_average.main, ["--checkpoint_root", run_root, "--steps",
+                                   "4,8", "--out", avg_dir])
+    avg, _ = load(avg_dir)
+    worst = 0.0
+    for key, a in steps[0].items():
+        want = (a.astype(np.float64) + steps[1][key]) / 2
+        err = float(np.max(np.abs(avg[key] - want)
+                           / np.maximum(np.abs(want), 1e-30)))
+        check(avg[key].dtype == np.float32 and err <= 1e-7,
+              f"ckpt_average {key}: rel {err:.3g}")
+        worst = max(worst, err)
+    packed_path = os.path.join(root, "step8.npz")
+    packed = ckpt_npz.pack(os.path.join(run_root, "8"), packed_path)
+    with np.load(DENOISER_NPZ) as z:
+        want_dtypes = {k: z[k].dtype for k in z.files}
+    check({k: v.dtype for k, v in packed.items()} == want_dtypes,
+          "ckpt_npz pack: keys or dtypes differ from the shipped file's")
+    back, _ = load(ckpt_npz.unpack(packed_path, os.path.join(root, "unp")))
+    for key, value in steps[1].items():
+        want = (value if key.startswith("batch_stats/")
+                else value.astype(np.float16).astype(np.float32))
+        check(np.array_equal(back[key], want), f"ckpt_npz round trip {key}")
+    served, _, _, avg_launches, _ = served_wavs(
+        os.path.join(root, "serve_avg"), "denoiser", avg_dir, stft_cuda,
+        wavs_p7)
+    check(avg_launches == 2, f"averaged serving: {avg_launches} launches")
+    say(f"[16c tools] ckpt_average of phase 9's steps 4 and 8: max rel diff "
+        f"{worst:.3g} from the float64 mean; ckpt_npz pack of step 8 "
+        f"({os.path.getsize(packed_path) / 1e6:.1f} MB, the shipped keys "
+        "and dtypes) and unpack: params at float16 rounding, batch_stats "
+        "exact; cli.denoiser --checkpoint <averaged dir>: 4 finite wavs, "
+        f"{avg_launches} kernel launches")
+
+    parts["c"] = time.perf_counter() - t0 - sum(parts.values())
+
+    # (d) validate_demo on a synthetic DEMO_N-HANS tree
+    _, mixed5, _, neg5 = phase5
+    n = 3 * SR
+    demo = os.path.join(root, "DEMO_N-HANS")
+    write_demo_tree(demo, mixed5[1][:n], neg5[:n], np.resize(mixed5[0], n))
+    records, vd_launches, vd_shapes = {}, 0, []
+    for task, npz in (("denoiser", DENOISER_NPZ),
+                      ("separator", SEPARATOR_NPZ)):
+        argv = ["--demo_root", demo, "--task", task, "--checkpoint", npz,
+                "--ac"]
+        torch.cuda.synchronize()
+        stft_cuda.log_spectrogram_kernel.launches = 0
+        with kernel_shapes(stft_cuda) as shapes:
+            got = validate_demo.main(argv)
+        torch.cuda.synchronize()
+        vd_launches += stft_cuda.log_spectrogram_kernel.launches
+        vd_shapes += shapes
+        with plain_spectrogram(stft_cuda):
+            want = validate_demo.main(argv)
+        check(len(got) == len(want) == 1 and set(got[0]) == set(want[0]),
+              f"validate_demo {task}: records")
+        diffs = {}
+        for key, value in want[0].items():
+            if key == "example":
+                continue
+            bar = 1e-4 if key.startswith("stoi") else 1e-3
+            diffs[key] = abs(got[0][key] - value)
+            check(diffs[key] <= bar, f"validate_demo {task} {key}: "
+                  f"{got[0][key]} against {value} on the plain spectrogram")
+        records[task] = (got[0], diffs)
+    check(vd_launches == 4, f"validate_demo: {vd_launches} launches")
+    for task, (rec, diffs) in records.items():
+        say(f"[16d validate_demo] {task}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in rec.items() if k != "example")
+            + "; against the plain spectrogram, max |diff| "
+            + f"{max(diffs.values()):.3g}")
+    say(f"  {vd_launches} kernel launches ({vd_shapes})")
+
+    parts["d"] = time.perf_counter() - t0 - sum(parts.values())
+
+    # (e) the supervisor over cli.train on phase 9's corpus
+    ck, summ = os.path.join(root, "ck_sup"), os.path.join(root, "sum_sup")
+    t_sup = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "nhans_tpu_torch.tools.train_supervisor",
+         "--target", "4", "--chunk", "2", "--", "--speech_wav_dir",
+         corpus[0], "--noise_wav_dir", corpus[1], "--checkpoint_dir", ck,
+         "--summaries_dir", summ, "--eval_utts", "0",
+         "--train_monitor_every", "1", "--eval_every", "2"],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    w_sup = time.perf_counter() - t_sup
+    check(r.returncode == 0, f"train_supervisor failed:\n{r.stderr[-3000:]}")
+    chunks = [line for line in r.stdout.splitlines()
+              if line.startswith("supervisor: [")]
+    check(len(chunks) == 2 and "target 4 reached" in r.stdout,
+          f"train_supervisor: {chunks}")
+    with open(os.path.join(summ, "nhans.jsonl")) as f:
+        losses = {rec["step"]: rec["loss"] for rec in map(json.loads, f)
+                  if "loss" in rec}
+    check(sorted(losses) == [1, 2, 3, 4], f"supervised steps {sorted(losses)}")
+    rel = abs(losses[4] - banked_losses[4]) / abs(banked_losses[4])
+    check(rel <= RESUME_RTOL, f"supervised step 4: loss {losses[4]} against "
+          f"{banked_losses[4]}")
+    say(f"[16e supervisor] --target 4 --chunk 2: 2 processes ("
+        + "; ".join(c.split("] ")[0] + "]" for c in chunks)
+        + f") in {w_sup:.1f} s; step 4 loss {losses[4]:.7f} against "
+        f"{banked_losses[4]:.7f} uninterrupted (rel {rel:.2g})")
+    wall = time.perf_counter() - t0
+    parts["e"] = wall - sum(parts.values())
+    say(f"[16] phase 16 wall time {wall:.1f} s ("
+        + ", ".join(f"({k}) {v:.1f} s" for k, v in parts.items())
+        + f") on {smi}")
+    return dict(conv_launches=conv_launches, conv_shapes=conv_shapes,
+                vd_launches=vd_launches, vd_shapes=vd_shapes, wall=wall)
+
+
 def timed_groups(evaluator):
     """Wrap the evaluator's device work per group: (card ms by CUDA events
     from its first copy to the host to its last, host wall s) for each."""
@@ -801,7 +1124,8 @@ def main() -> int:
               ((16, 163600), False), ((16, 64000), False),
               ((8, 163600), False), ((3, 4000 + 77), True), ((2, 400 + 160 * 20), True),
               ((1, 400), True), ((2, 399), True), ((64, 160000), True),
-              ((8, 256000), True)]
+              ((8, 256000), True), ((2, 32240), False), ((1, 52000), True),
+              ((1, 48000), True)]
     for shape, with_reim in shapes:
         x = torch.from_numpy(
             (rng.standard_normal(shape) * 0.3).astype(np.float32)).to(dev)
@@ -878,7 +1202,8 @@ def main() -> int:
     for B, L, with_reim in ((1, 160000, True), (4, 160000, True),
                             (8, 160000, True), (8, 32240, False),
                             (16, 163600, False), (16, 64000, False),
-                            (8, 163600, False), (8, 256000, True)):
+                            (8, 163600, False), (8, 256000, True),
+                            (1, 52000, True), (1, 48000, True)):
         x = torch.from_numpy((rng.standard_normal((B, L)) * 0.3)
                              .astype(np.float32)).to(dev)
         F = sp.num_frames(L)
@@ -1064,6 +1389,12 @@ def main() -> int:
                   f"out{tag}.wav length / finite")
         wav = wavfile.read(out_wav)[1]
         check(np.abs(wav - want["denoised"]).max() <= WAVE_ATOL, "CLI output")
+        # phase 16 serves the same input from the TF-converted weights
+        p7 = {"in": np.rint(mixed[1]).astype(np.int16),
+              "neg": np.rint(neg).astype(np.int16),
+              "out": {tag: wavfile.read(os.path.join(tmp, f"out{tag}.wav"))[1]
+                      for tag in ("", "_mixed_processed", "_removed",
+                                  "_compensated")}}
     say(f"[7 cli] python -m nhans_tpu_torch.cli.denoiser: 4 files, snr_est "
         f"{snr_cli:.4f}, {w:.1f} s with start-up")
 
@@ -1695,6 +2026,10 @@ def main() -> int:
         # -- 15. several ranks -------------------------------------------------
         p15 = phase15(tmp, corpus, smi, count, tgold, banked_losses,
                       (den, mixed, pos, neg, out))
+
+        # -- 16. model preparation and the checkpoint tools --------------
+        p16 = phase16(tmp, corpus, smi, banked_losses, p7,
+                      (den, mixed, pos, neg))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1710,7 +2045,11 @@ def main() -> int:
             ("evaluation", (8, 256000, True), eval_launches,
              [(8, 256000)]),
             ("training, data-parallel rank", (8, 163600, False),
-             p15["launches"], [(8, 163600)])):
+             p15["launches"], [(8, 163600)]),
+            ("serving, converted TF checkpoint", (1, 52000, True),
+             p16["conv_launches"], [(2, 32240), (1, 52000)]),
+            ("validate_demo", (1, 48000, True), p16["vd_launches"],
+             [(2, 32240), (1, 48000)])):
         t = timings[key]
         kernels.append({
             "name": f"log_spectrogram ({path})",
@@ -1729,6 +2068,24 @@ def main() -> int:
                 f"steps of {p15['rows']} utterances a rank over gloo, both "
                 f"ranks on this card (rank 1: {p15['launches_rank1']}); "
                 "times: phase 4 at the rank's shape")
+        if path == "serving, converted TF checkpoint":
+            check(sorted(set(p16["conv_shapes"])) == [((1, 52000), True),
+                                                      ((2, 32240), False)],
+                  f"converted serving shapes {p16['conv_shapes']}")
+            kernels[-1]["note"] = (
+                "launches: cli.denoiser --checkpoint on the variables "
+                "directory cli.load_denoiser made from a TF bundle of the "
+                "shipped weights (phase 16 (a)), contexts [2, 32240] and "
+                "mixed [1, 52000]; times: phase 4 at the mixed shape")
+        if path == "validate_demo":
+            check(sorted(set(p16["vd_shapes"])) == [((1, 48000), True),
+                                                    ((2, 32240), False)],
+                  f"validate_demo shapes {p16['vd_shapes']}")
+            kernels[-1]["note"] = (
+                "launches: tools/validate_demo scoring one denoising and "
+                "one separation example of 3 s with the shipped weights "
+                "(phase 16 (d)), contexts [2, 32240] and mixed [1, 48000] "
+                "each; times: phase 4 at the mixed shape")
         if path == "training, bfloat16":
             kernels[-1]["note"] = (
                 "launches: the 21 steps of cli.train --dtype bfloat16 "

@@ -6,6 +6,14 @@
     python -m nhans_tpu_torch.cli.separator --checkpoint docs/quality/separator_q5_swa.npz \\
         --input mixed.wav --pos target.wav --neg interference.wav --output out.wav
 
+``--checkpoint`` takes a flat ``.npz``, a variables directory
+(``load_denoiser``/``load_separator``, ``tools/ckpt_average``), a step
+directory of the port's trainer or its run root (the latest step); an
+Orbax directory of the JAX package is refused with the route to a flat
+``.npz``.  Without ``--checkpoint`` it serves a seeded random
+initialisation, with a WARNING on stderr: its residual is 0, so the
+output is the identity enhancement, as with the JAX CLI.
+
 Next to the output it writes ``<out>_mixed_processed.wav`` and
 ``<out>_removed.wav``, and for the denoiser ``<out>_compensated.wav`` and
 the SNR estimate on standard output.  ``--input`` may be a directory:
@@ -64,14 +72,35 @@ def mesh_devices(mesh: str, device) -> list:
     return [torch.device("cuda", i) for i in range(n)]
 
 
+RANDOM_INIT_WARNING = (
+    "WARNING: no --checkpoint given; using randomly initialized weights "
+    "(identity enhancement). Train a model or import the published TF "
+    "checkpoint with python -m nhans_tpu_torch.cli.load_denoiser "
+    "(or load_separator) --tf_checkpoint.")
+
+
+def load_weights(cfg: Config, checkpoint: str) -> dict:
+    """The ``state_dict`` of ``checkpoint`` (any form
+    ``train/checkpoint.py::load`` takes), or with none the seeded random
+    initialisation and the WARNING on stderr."""
+    from nhans_tpu_torch.compat.weights import from_flax
+    from nhans_tpu_torch.models import random_init_state
+    from nhans_tpu_torch.train.checkpoint import load
+
+    if not checkpoint:
+        print(RANDOM_INIT_WARNING, file=sys.stderr)
+        return random_init_state(cfg)
+    return from_flax(load(checkpoint)[0])
+
+
 def load_enhancer(cfg: Config, checkpoint: str, window_chunk: int = 2048,
                   buckets_seconds=None, device="cuda", devices=None):
-    """An ``Enhancer`` for ``cfg`` with the weights of a flat ``.npz``, on
-    ``device`` or split over ``devices``."""
-    from nhans_tpu_torch.compat.weights import load_npz
+    """An ``Enhancer`` for ``cfg`` with the weights of ``checkpoint``
+    (``load_weights``), on ``device`` or split over ``devices``."""
     from nhans_tpu_torch.infer.enhance import DEFAULT_BUCKETS_SECONDS, Enhancer
 
-    return Enhancer(cfg, load_npz(checkpoint), window_chunk=window_chunk,
+    return Enhancer(cfg, load_weights(cfg, checkpoint),
+                    window_chunk=window_chunk,
                     buckets_seconds=buckets_seconds or DEFAULT_BUCKETS_SECONDS,
                     device=device, devices=devices)
 
@@ -114,9 +143,6 @@ def run(task: str, argv=None) -> None:
     args = parser.parse_args(argv)
     base = Config.denoiser() if task == "denoiser" else Config.separator()
     pad = _freq_pad(base.model.num_features)
-    if not args.checkpoint:
-        sys.exit(f"--checkpoint is required: a flat .npz of weights, e.g. "
-                 f"docs/quality/{task}_q5_swa.npz")
     cfg = base.replace(
         audio=dataclasses.replace(
             base.audio, recon_residual_cap=args.recon_residual_cap),
@@ -125,10 +151,10 @@ def run(task: str, argv=None) -> None:
 
     try:
         device = resolve_device(args.device)
-    except RuntimeError as err:
+        enhancer = load_enhancer(cfg, args.checkpoint,
+                                 devices=mesh_devices(args.mesh, device))
+    except (RuntimeError, ValueError, FileNotFoundError) as err:
         sys.exit(f"error: {err}")
-    enhancer = load_enhancer(cfg, args.checkpoint,
-                             devices=mesh_devices(args.mesh, device))
 
     if os.path.isdir(args.input):
         inputs = wavio.list_wavs(args.input)

@@ -6,14 +6,14 @@
         --noise_wav_dir noise/ --eval_seeds test
 
 ``--checkpoint`` is a step directory the port's trainer wrote (or its
-``<checkpoint_dir>`` root: the latest step) or a flat ``.npz`` of
-weights.  It prints the split, then the loss and the scores
-(SI-SDR, STOI, ESTOI, PESQ) over the md5-deterministic pairing of the
-split, and dumps the reconstructions where ``--wav_dump_folder`` and
-``--dump_results`` point.  ``--device`` (default ``cuda``) chooses the
-card or ``cpu``.  The JAX command scores a random initialisation when no
-checkpoint is given; the port cannot reproduce flax's random draws, so
-it exits with a message instead.
+``<checkpoint_dir>`` root: the latest step), a variables directory or a
+flat ``.npz`` of weights; without it the command scores the seeded
+random initialisation of the serving CLIs (a WARNING on stderr), whose
+scores equal the JAX command's ``PRNGKey(0)`` init.  It prints the split,
+then the loss and the scores (SI-SDR, STOI, ESTOI, PESQ) over the
+md5-deterministic pairing of the split, and dumps the reconstructions
+where ``--wav_dump_folder`` and ``--dump_results`` point.  ``--device``
+(default ``cuda``) chooses the card or ``cpu``.
 """
 
 from __future__ import annotations
@@ -29,8 +29,9 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--task", choices=("denoiser", "separator"),
                    default="denoiser")
     p.add_argument("--checkpoint", default="",
-                   help="a step directory of the port's trainer, or a "
-                        "flat .npz of weights")
+                   help="a step directory of the port's trainer or its "
+                        "root, a variables directory, or a flat .npz of "
+                        "weights; none scores a random initialisation")
     p.add_argument("--eval_utts", type=int, default=0,
                    help="limit utterances (0 = whole split)")
     p.add_argument("--device", default="cuda",
@@ -42,30 +43,24 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     args = parser().parse_args(argv)
-    if not args.checkpoint:
-        sys.exit("--checkpoint is required: a step directory of "
-                 "nhans_tpu_torch.cli.train or a flat .npz of weights, "
-                 f"e.g. docs/quality/{args.task}_q5_swa.npz (scoring a "
-                 "random initialisation is not ported; see ROADMAP.md)")
     cfg = config_from_args(args, task=args.task)
 
-    from nhans_tpu_torch.compat.weights import from_flax
+    from nhans_tpu_torch.cli._app import load_weights
     from nhans_tpu_torch.data.loader import EvalLoader
     from nhans_tpu_torch.models import build_model
-    from nhans_tpu_torch.train import checkpoint as ckpt
     from nhans_tpu_torch.train.evaluate import Evaluator
     from nhans_tpu_torch.utils.device import resolve_device
 
     try:
         device = resolve_device(args.device)
-        variables, _ = ckpt.load(args.checkpoint)
+        weights = load_weights(cfg, args.checkpoint)
     except (RuntimeError, ValueError, FileNotFoundError) as err:
         sys.exit(f"error: {err}")
     evaluator = Evaluator(cfg, build_model(cfg).to(device))
     loader = EvalLoader(cfg, limit=args.eval_utts or None)
     print(cfg.data.eval_seeds)
     metrics = evaluator.run(
-        from_flax(variables), loader, step=0,
+        weights, loader, step=0,
         modelname=cfg.train.model_name,
         wav_dump_folder=cfg.train.wav_dump_folder or None,
         dump_results=cfg.train.dump_results or None,

@@ -55,6 +55,17 @@ def to_flax(tensors: Dict[str, torch.Tensor],
     return flat
 
 
+def flat_variables(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Flat flax variables of an ``NHANSNet`` ``state_dict``: its
+    population statistics under ``batch_stats/``, the rest under
+    ``params/``; ``from_flax``'s inverse."""
+    stats = {k for k in state if k.endswith(("pop_mean", "pop_variance"))}
+    return {**to_flax({k: v for k, v in state.items() if k not in stats},
+                      "params"),
+            **to_flax({k: v for k, v in state.items() if k in stats},
+                      "batch_stats")}
+
+
 def load_npz(path: str) -> Dict[str, torch.Tensor]:
     """``from_flax`` of a flat ``.npz`` checkpoint."""
     with np.load(path) as z:

@@ -250,9 +250,12 @@ def add_inference_flags(parser, task: str = "denoiser") -> None:
     parser.add_argument("--ac", action="store_true", default=False,
                         help="auto compensation from the SNR estimate")
     parser.add_argument("--checkpoint", default="",
-                        help="weights as a flat .npz of flax-layout "
+                        help="weights: a flat .npz of flax-layout "
                              "params/batch_stats (e.g. "
-                             "docs/quality/denoiser_q5_swa.npz)")
+                             "docs/quality/denoiser_q5_swa.npz), a "
+                             "variables directory, a step directory or a "
+                             "run root (its latest step); none serves a "
+                             "random initialisation")
     parser.add_argument("--demo", action="store_true", default=False,
                         help="treat --input as CLEAN speech: mix it "
                              "with --pos/--neg at 0 dB first, then "

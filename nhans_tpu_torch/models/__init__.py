@@ -36,6 +36,19 @@ def init_variables(cfg: Config, generator: torch.Generator,
     return model.to(device)
 
 
+def random_init_state(cfg: Config) -> dict:
+    """The weights of the commands that run without a checkpoint (the
+    serving CLIs, ``cli.evaluate``, ``load_denoiser``/``load_separator``
+    without ``--tf_checkpoint``): the ``state_dict`` of
+    ``init_variables`` from a CPU generator seeded with 0, where the JAX
+    commands take ``PRNGKey(0)``.  The draws are not flax's, but
+    ``last_dense`` is zero with a zero bias, so the residual of this init
+    is 0 whatever was drawn, and its served output and evaluation equal
+    the JAX commands'."""
+    return init_variables(cfg, torch.Generator().manual_seed(0),
+                          "cpu").state_dict()
+
+
 MODELS = {
     "denoiser": Config.denoiser,
     "separator": Config.separator,

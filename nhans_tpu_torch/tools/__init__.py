@@ -1,1 +1,2 @@
-"""Diagnostic scripts for the port (run with ``python -m``)."""
+"""Diagnostic scripts and checkpoint tools for the port (run with
+``python -m``)."""

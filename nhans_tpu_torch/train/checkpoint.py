@@ -12,7 +12,11 @@ The port writes its own: ``<checkpoint_dir>/<model_name>/<step>/`` holds
   and each of its state slots as ``opt/<slot>/<flax path>``.
 
 A step directory is written under a temporary name and renamed, so a
-reader never sees half of one.  Both files hold full tensors: a
+reader never sees half of one.  A variables directory
+(``save_variables``: ``load_denoiser``, ``tools/ckpt_average``,
+``tools/ckpt_npz unpack``) holds only ``variables.npz``, itself written
+under a temporary name and renamed; it stands where the JAX package
+writes an Orbax directory.  Both files hold full tensors: a
 tensor-parallel run joins its model-axis blocks before it saves, and
 ``load_into`` cuts them again for a model whose wide kernels hold blocks
 (``parallel/sharding_rules.py``), so a checkpoint loads on any mesh.
@@ -66,7 +70,8 @@ def is_orbax(path: str) -> bool:
         os.path.exists(os.path.join(path, m)) for m in _ORBAX_MARKERS)
 
 
-def _steps(path: str):
+def list_steps(path: str):
+    """The complete step directories under ``path``, in order."""
     if not os.path.isdir(path):
         return []
     return sorted(int(d) for d in os.listdir(path) if d.isdigit()
@@ -81,7 +86,7 @@ def resolve(path: str) -> str:
     for _ in range(2):
         if os.path.exists(os.path.join(path, VARIABLES)) or is_orbax(path):
             return path
-        steps = _steps(path)
+        steps = list_steps(path)
         if steps:
             return os.path.join(path, str(steps[-1]))
         subs = [d for d in os.listdir(path)
@@ -93,11 +98,24 @@ def resolve(path: str) -> str:
     return path
 
 
+def save_variables(directory: str, variables: Dict[str, np.ndarray]) -> str:
+    """Write flat flax variables as ``<directory>/variables.npz`` (the
+    directory made if need be), under a temporary name and renamed;
+    returns the file's path."""
+    os.makedirs(directory, exist_ok=True)
+    final = os.path.join(directory, VARIABLES)
+    tmp = os.path.join(directory, f"variables.tmp-{os.getpid()}.npz")
+    np.savez(tmp, **variables)
+    os.replace(tmp, final)
+    return final
+
+
 def load(path: str) -> Tuple[dict, Optional[dict]]:
     """(variables, train_state or None) of a flat ``.npz`` (inference
-    variables only) or of a step directory.  An Orbax directory of the
-    JAX package is refused: export it as a flat ``.npz`` with
-    ``tools/ckpt_npz.py`` first."""
+    variables only), a variables directory, a step directory or a run
+    root (``resolve``).  An Orbax directory of the JAX package is
+    refused: export it as a flat ``.npz`` with the JAX package's
+    ``tools/ckpt_npz.py pack`` first."""
     if path.endswith(".npz") and os.path.isfile(path):
         with np.load(path) as z:
             return {k: z[k] for k in z.files}, None
@@ -105,8 +123,9 @@ def load(path: str) -> Tuple[dict, Optional[dict]]:
     if is_orbax(step_dir):
         raise ValueError(
             f"{path} is an Orbax checkpoint of the JAX package, which "
-            "nhans_tpu_torch cannot read; export its variables with "
-            "tools/ckpt_npz.py and pass the .npz")
+            "nhans_tpu_torch cannot read; export its variables on a "
+            f"machine with JAX with `python tools/ckpt_npz.py pack {path} "
+            "<out.npz>` and pass the .npz")
     if not os.path.exists(os.path.join(step_dir, VARIABLES)):
         raise FileNotFoundError(f"no checkpoint at {path}")
     with np.load(os.path.join(step_dir, VARIABLES)) as z:
@@ -143,7 +162,7 @@ class Checkpointer:
         return final
 
     def steps(self):
-        return _steps(self.path)
+        return list_steps(self.path)
 
     def latest_step(self) -> Optional[int]:
         steps = self.steps()

@@ -6,6 +6,7 @@ them where JAX is not installed (the machine with the GPU).
     python tests/make_torch_golden.py train_bf16  # the same in bfloat16
     python tests/make_torch_golden.py eval     # an evaluation pass
     python tests/make_torch_golden.py dp       # a step over 2 data ranks
+    python tests/make_torch_golden.py random_init  # serving a fresh init
 
 The first runs ``nhans_tpu``'s ``Enhancer(out_wire="float32")`` with the
 shipped ``docs/quality/denoiser_q5_swa.npz`` on a seeded 1.5 s input and
@@ -50,6 +51,18 @@ rank) x 2 crops, and writes ``tests/data/torch_golden_train_dp.npz`` with
 the training golden's keys.  ``chip_smoke.py`` holds the port's step on
 two ranks to it (``port_train_golden`` with a mesh).
 
+The fifth (``random_init``) serves ``random_init_inputs`` (the serving
+golden's inputs as the int16 wavs a command line reads) through the JAX
+package's ``Enhancer(out_wire="float32")`` with the ``PRNGKey(0)``
+initialisation its CLIs use without ``--checkpoint``, for each task in
+the CLI's context slots, and writes ``tests/data/torch_golden_random_init.npz``:
+the inputs' digest, ``<task>/denoised``, ``<task>/removed`` and
+``<task>/snr_est``, and ``mixed_processed`` once (it does not depend on
+the task).  That init's ``last_dense`` is zero, so its residual is 0 and
+the output depends on no random draw: the port's own seeded init must
+reproduce it (``tests/test_torch_load_model.py``, ``chip_smoke.py``
+phase 16).
+
 ``run_ranks`` starts a function as the ranks of a ``torch.distributed``
 world, a process each, joined through a ``file://`` store in a temporary
 directory; the port's multi-process tests and ``chip_smoke.py`` use it.
@@ -81,6 +94,8 @@ GOLDEN_TRAIN_BF16 = os.path.join(REPO, "tests", "data",
 GOLDEN_EVAL = os.path.join(REPO, "tests", "data", "torch_golden_eval.npz")
 GOLDEN_TRAIN_DP = os.path.join(REPO, "tests", "data",
                                "torch_golden_train_dp.npz")
+GOLDEN_RANDOM_INIT = os.path.join(REPO, "tests", "data",
+                                  "torch_golden_random_init.npz")
 DENOISER_NPZ = os.path.join(REPO, "docs", "quality", "denoiser_q5_swa.npz")
 SEPARATOR_NPZ = os.path.join(REPO, "docs", "quality", "separator_q5_swa.npz")
 SEED = 20240
@@ -106,6 +121,86 @@ def golden_inputs(seed: int = SEED):
     mixed = 6000.0 * envelope * voice + neg[:24000]
     pos = rng.standard_normal(12800) * 800.0
     return mixed, pos, neg
+
+
+def random_init_inputs():
+    """``golden_inputs`` as the int16 samples of the wavs a command line
+    reads: (mixed, pos, neg)."""
+    return tuple(np.clip(np.rint(x), -32768, 32767).astype(np.int16)
+                 for x in golden_inputs())
+
+
+def jax_random_init_golden() -> dict:
+    """The JAX package's serving output with its CLIs' ``PRNGKey(0)``
+    init on ``random_init_inputs`` (CPU), for both tasks."""
+    import jax
+
+    from nhans_tpu.config import Config
+    from nhans_tpu.infer.enhance import Enhancer
+    from nhans_tpu.models import init_variables
+
+    mixed, pos, neg = (x.astype(np.float64) for x in random_init_inputs())
+    out = {"input_sha256": np.array(input_digest(mixed, pos, neg))}
+    for task in ("denoiser", "separator"):
+        cfg = getattr(Config, task)()
+        _, variables = init_variables(cfg, jax.random.PRNGKey(0), train=False)
+        enh = Enhancer(cfg, variables, out_wire="float32")
+        # the CLIs' context slots: the separator takes (--neg, --pos)
+        r = (enh.enhance(mixed, pos, neg) if task == "denoiser"
+             else enh.enhance(mixed, neg, pos))
+        processed = np.asarray(r["mixed_processed"], np.float32)
+        if "mixed_processed" in out:
+            assert np.array_equal(out["mixed_processed"], processed)
+        out["mixed_processed"] = processed
+        for key in ("denoised", "removed"):
+            out[f"{task}/{key}"] = np.asarray(r[key], np.float32)
+        out[f"{task}/snr_est"] = np.float64(r["snr_est"])
+    return out
+
+
+def write_tf_bundle(npz_path: str, task: str, prefix: str) -> dict:
+    """The weights of a flat ``.npz`` written as a TF bundle under their
+    TF names (the inverse of the port's ``tf_name_map``): float32, biases
+    and BatchNorm tensors [1, 1, 1, C], and for the separator the unused
+    ``Variable`` its published bundle keeps.  Returns the flat float32
+    weights."""
+    from nhans_tpu_torch.compat.tf_bundle import write_bundle
+    from nhans_tpu_torch.compat.tf_import import flax_key, tf_name_map
+
+    with np.load(npz_path) as z:
+        flat = {k: z[k].astype(np.float32) for k in z.files}
+    tensors = {}
+    for tf_name, (coll, path) in tf_name_map(task).items():
+        a = flat[flax_key(coll, path)]
+        tensors[tf_name] = a.reshape(1, 1, 1, -1) if a.ndim == 1 else a
+    if task == "separator":
+        tensors["Variable"] = np.array(545000, np.int64)
+    write_bundle(prefix, tensors)
+    return flat
+
+
+def write_demo_tree(root: str, clean, noise, other) -> None:
+    """A corpus in the ``DEMO_N-HANS`` layout under ``root``, as int16
+    wavs from int16-scale signals of one length: ``denoising/example1``
+    with ``mixed`` (clean + noise), ``denoised`` (a stand-in for the
+    published output: clean + noise / 10), ``target`` (clean) and
+    ``negNoise`` (noise), and ``source_separation/example1`` with only
+    ``mixed`` (clean + other) and ``separated`` (clean + other / 10), as
+    the published separation examples ship."""
+    from scipy.io import wavfile
+
+    def write(sub, kind, x):
+        d = os.path.join(root, sub, "example1")
+        os.makedirs(d, exist_ok=True)
+        wavfile.write(os.path.join(d, f"example1_{kind}.wav"), 16000,
+                      np.clip(np.rint(x), -32768, 32767).astype(np.int16))
+
+    for kind, x in (("mixed", clean + noise), ("denoised", clean + noise / 10),
+                    ("target", clean), ("negNoise", noise)):
+        write("denoising", kind, x)
+    for kind, x in (("mixed", clean + other),
+                    ("separated", clean + other / 10)):
+        write("source_separation", kind, x)
 
 
 # the training golden: one utterance of 261 frames, 2 crops, sgd
@@ -692,6 +787,11 @@ def main() -> None:
         np.savez_compressed(GOLDEN_TRAIN_BF16, **out)
         print(f"wrote {GOLDEN_TRAIN_BF16} "
               f"({os.path.getsize(GOLDEN_TRAIN_BF16)} bytes)")
+        return
+    if sys.argv[1:] == ["random_init"]:
+        np.savez_compressed(GOLDEN_RANDOM_INIT, **jax_random_init_golden())
+        print(f"wrote {GOLDEN_RANDOM_INIT} "
+              f"({os.path.getsize(GOLDEN_RANDOM_INIT)} bytes)")
         return
     if sys.argv[1:] == ["eval"]:
         np.savez_compressed(GOLDEN_EVAL, **jax_eval_golden())

@@ -72,7 +72,7 @@ def test_help_has_reference_flags(task):
 
 @pytest.mark.parametrize("args,env,needle", [
     ([], {"NHANS_FREQ_PAD": "abc"}, "NHANS_FREQ_PAD"),
-    (["--checkpoint", ""], {}, "--checkpoint is required"),
+    (["--checkpoint", "no/such/checkpoint"], {}, "no checkpoint at"),
 ])
 def test_refusals_are_messages_not_tracebacks(args, env, needle):
     r = _cli("denoiser", "--device", "cpu", *args, env=env)

@@ -2,8 +2,8 @@
 at the full channel widths: ``cli.train`` with its default evaluation
 flags trains, scores its checkpoint and writes the record;
 ``cli.evaluate`` on that checkpoint prints the same metrics;
-``--async_eval`` is taken; ``cli.evaluate`` without a checkpoint or
-without a card exits with a message.
+``--async_eval`` is taken; ``cli.evaluate`` with a path that holds no
+checkpoint or without a card exits with a message.
 
 The default buckets put every utterance on a 4 s bucket (398 frames) in
 groups of 8, so the runs cut the windows with 380-frame contexts and
@@ -105,12 +105,13 @@ def test_cli_train_takes_async_eval(tmp_path):
 
 
 @pytest.mark.parametrize("flags, needle", [
-    ([], "--checkpoint is required"),
+    (["--device", "cpu", "--checkpoint", "no/such/checkpoint"],
+     "no checkpoint at"),
     (["--checkpoint", "docs/quality/denoiser_q5_swa.npz"], "--device cpu"),
 ])
 def test_cli_evaluate_refusals_are_messages(flags, needle):
-    """No checkpoint: the JAX command's random initialisation is not
-    ported.  No card (this machine) and no --device cpu."""
+    """A checkpoint path that holds none.  No card (this machine) and no
+    --device cpu."""
     with pytest.raises(SystemExit) as exit_info:
         cli_evaluate.main(flags)
     assert needle in str(exit_info.value.code)

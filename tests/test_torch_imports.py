@@ -36,15 +36,44 @@ def test_every_module_imports_with_jax_blocked():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     # config, 12 subpackages, dsp/{spectral,mixing},
-    # ops/{_build,stft_cuda}, nn/{blocks,model}, compat/weights,
-    # infer/enhance,
+    # ops/{_build,stft_cuda}, nn/{blocks,model},
+    # compat/{weights,tf_bundle,tf_import}, infer/enhance,
     # utils/{device,wavio,tb_events,watchdog,scoring,pesq_np,native},
-    # cli/{_app,denoiser,separator,train,seeds,evaluate},
+    # cli/{_app,denoiser,separator,train,seeds,evaluate,load_model,
+    #      load_denoiser,load_separator},
     # data/{manifest,banks,loader,pipeline},
     # train/{optim,step,checkpoint,metrics,trainer,evaluate},
     # tools/{devtime,profile_serving,profile_training,spectrogram_anatomy,
-    #        eval_checkpoints}, parallel/{mesh,sharding_rules}
-    assert int(r.stdout.strip()) == 51
+    #        eval_checkpoints,ckpt_npz,ckpt_average,validate_demo,
+    #        train_supervisor}, parallel/{mesh,sharding_rules}
+    assert int(r.stdout.strip()) == 60
+
+
+_RUN_BLOCKED = r"""
+import runpy, sys
+for name in ("jax", "jaxlib", "flax", "nhans_tpu"):
+    sys.modules[name] = None
+module = sys.argv[1]
+sys.argv = [module, *sys.argv[2:]]
+runpy.run_module(module, run_name="__main__")
+"""
+
+
+@pytest.mark.parametrize("module,args,code,needle", [
+    ("nhans_tpu_torch.cli.load_denoiser", ["--help"], 0, "--tf_checkpoint"),
+    ("nhans_tpu_torch.cli.load_separator", ["--help"], 0, "--tf_checkpoint"),
+    ("nhans_tpu_torch.tools.ckpt_average", ["--help"], 0, "--checkpoint_root"),
+    ("nhans_tpu_torch.tools.ckpt_npz", [], 2, "unpack"),
+    ("nhans_tpu_torch.tools.validate_demo", ["--help"], 0, "--demo_root"),
+    ("nhans_tpu_torch.tools.train_supervisor", ["--help"], 0, "--target"),
+])
+def test_new_commands_run_with_jax_blocked(module, args, code, needle):
+    """The model-preparation commands and checkpoint tools start as
+    ``python -m`` modules where JAX and nhans_tpu cannot be imported."""
+    r = subprocess.run([sys.executable, "-c", _RUN_BLOCKED, module, *args],
+                       cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert r.returncode == code, r.stderr
+    assert needle in r.stdout
 
 
 @pytest.mark.parametrize("path", PORT_SOURCES)
