@@ -7,6 +7,7 @@ them where JAX is not installed (the machine with the GPU).
     python tests/make_torch_golden.py eval     # an evaluation pass
     python tests/make_torch_golden.py dp       # a step over 2 data ranks
     python tests/make_torch_golden.py random_init  # serving a fresh init
+    python tests/make_torch_golden.py flops    # FLOP counts, JAX and port
 
 The first runs ``nhans_tpu``'s ``Enhancer(out_wire="float32")`` with the
 shipped ``docs/quality/denoiser_q5_swa.npz`` on a seeded 1.5 s input and
@@ -78,6 +79,7 @@ from __future__ import annotations
 import dataclasses
 import glob
 import hashlib
+import json
 import os
 import subprocess
 import sys
@@ -201,6 +203,53 @@ def write_demo_tree(root: str, clean, noise, other) -> None:
     for kind, x in (("mixed", clean + other),
                     ("separated", clean + other / 10)):
         write("source_separation", kind, x)
+
+
+def write_reference_tree(root: str, rng, seconds: float) -> None:
+    """A seeded stand-in, under ``root``, for the reference audio tree
+    that ``bench.py``'s suite and DEMO batch read, as 16 kHz int16 wavs:
+    every mixture is ``seconds`` long (a harmonic tone with a moving pitch
+    in noise), every context recording 3 s: of noise, or for the
+    separator's speakers, of another tone in noise.
+
+    * ``N_HANS___Selective_Noise/audio_examples``: ``Silent.wav`` (1 s of
+      zeros), ``exp1_noisy``, ``exp2_noisy``, ``exp1_+noise``,
+      ``exp1_-noise``, ``exp2_noise``;
+    * ``N_HANS___Source_Separation/audio_examples``: ``mixed``,
+      ``target_speaker``, ``noise_speaker``;
+    * ``DEMO_N-HANS/denoising/example1`` to ``example7``:
+      ``example<k>_mixed`` and ``example<k>_negNoise``."""
+    from scipy.io import wavfile
+
+    def write(path, x):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        wavfile.write(path, 16000,
+                      np.clip(np.rint(x), -32768, 32767).astype(np.int16))
+
+    def mixture(f0, secs=seconds):
+        t = np.arange(int(secs * 16000)) / 16000.0
+        phase = 2 * np.pi * np.cumsum(f0 + 30 * np.sin(2 * np.pi * 0.5 * t))
+        voice = sum(np.sin(h * phase / 16000.0) / h for h in range(1, 6))
+        return 6000.0 * voice + rng.standard_normal(len(t)) * 1500.0
+
+    def noise():
+        return rng.standard_normal(3 * 16000) * 2000.0
+
+    aex = os.path.join(root, "N_HANS___Selective_Noise", "audio_examples")
+    write(os.path.join(aex, "Silent.wav"), np.zeros(16000))
+    for name, x in (("exp1_noisy", mixture(140)), ("exp2_noisy", mixture(190)),
+                    ("exp1_+noise", noise()), ("exp1_-noise", noise()),
+                    ("exp2_noise", noise())):
+        write(os.path.join(aex, f"{name}.wav"), x)
+    ss = os.path.join(root, "N_HANS___Source_Separation", "audio_examples")
+    for name, x in (("mixed", mixture(120) + mixture(230)),
+                    ("target_speaker", mixture(120, 3)),
+                    ("noise_speaker", mixture(230, 3))):
+        write(os.path.join(ss, f"{name}.wav"), x)
+    for k in range(1, 8):
+        d = os.path.join(root, "DEMO_N-HANS", "denoising", f"example{k}")
+        write(os.path.join(d, f"example{k}_mixed.wav"), mixture(100 + 20 * k))
+        write(os.path.join(d, f"example{k}_negNoise.wav"), noise())
 
 
 # the training golden: one utterance of 261 frames, 2 crops, sgd
@@ -760,6 +809,51 @@ def rank_trainer(rank: int, world: int, spec_path: str) -> None:
                 for k, v in again.model.state_dict().items()})
 
 
+def flop_counts() -> dict:
+    """The FLOPs of one narrow denoiser sgd step on ``golden_train_inputs``
+    (the reduced model of the port's step tests, 2 crops), on the CPU:
+    ``jax``, XLA's ``cost_analysis()["flops"]`` of the JAX package's jitted
+    step, as ``bench.py`` reads it; ``port``, torch's count
+    (``nhans_tpu_torch.bench.count_flops``) of the port's step, which on
+    the CPU includes the plain spectrogram's DFT products; ``port_card``,
+    that count less the four spectrograms', which is what the harness
+    counts on the card, where the spectrogram is a kernel the counter
+    does not see."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from nhans_tpu.train.step import create_state as j_create_state
+    from nhans_tpu.train.step import make_train_step as j_make_train_step
+    from nhans_tpu_torch.bench import count_flops
+    from nhans_tpu_torch.ops.stft_cuda import log_spectrogram_plain
+    from nhans_tpu_torch.train.step import create_state, make_train_step
+
+    model = dict(window_frames=9, context_frames=20, embedding_dim=16,
+                 pos_embed_hidden=8, main_blocks=((3, 1, 8), (3, 2, 16)),
+                 context_blocks=(((4, 4), (2, 2), 8), ((3, 3), (1, 2), 16)))
+    jcfg, tcfg = twin_configs("denoiser", model=model,
+                              data=dict(slices_per_step=TRAIN_SLICES))
+    batch = golden_train_inputs()
+    jmodel, jstate, jtx = j_create_state(jcfg, jax.random.PRNGKey(0))
+    jstep = j_make_train_step(jcfg, jmodel, jtx, donate=False)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    compiled = jax.jit(lambda s, b, k: jstep(s, b, k)).lower(
+        jstate, jbatch, jax.random.PRNGKey(1)).compile()
+    jflops = float(compiled.cost_analysis()["flops"])
+    tmodel, tstate, ttx = create_state(tcfg, torch.Generator().manual_seed(0),
+                                       "cpu")
+    tstep = make_train_step(tcfg, tmodel, ttx)
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    port = count_flops(lambda: tstep(tstate, tbatch,
+                                     torch.Generator().manual_seed(1)))
+    rows = torch.zeros_like(tbatch["clean"], dtype=torch.float32)
+    dft = count_flops(lambda: log_spectrogram_plain(rows))
+    return {"jax": jflops, "port": port, "port_card": port - 4 * dft,
+            "ratio_port_to_jax": port / jflops,
+            "ratio_card_to_jax": (port - 4 * dft) / jflops}
+
+
 def main() -> None:
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     sys.path.insert(0, REPO)
@@ -787,6 +881,9 @@ def main() -> None:
         np.savez_compressed(GOLDEN_TRAIN_BF16, **out)
         print(f"wrote {GOLDEN_TRAIN_BF16} "
               f"({os.path.getsize(GOLDEN_TRAIN_BF16)} bytes)")
+        return
+    if sys.argv[1:] == ["flops"]:
+        print(json.dumps(flop_counts()))
         return
     if sys.argv[1:] == ["random_init"]:
         np.savez_compressed(GOLDEN_RANDOM_INIT, **jax_random_init_golden())

@@ -35,7 +35,7 @@ def test_every_module_imports_with_jax_blocked():
     r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    # config, 12 subpackages, dsp/{spectral,mixing},
+    # config, bench, 12 subpackages, dsp/{spectral,mixing},
     # ops/{_build,stft_cuda}, nn/{blocks,model},
     # compat/{weights,tf_bundle,tf_import}, infer/enhance,
     # utils/{device,wavio,tb_events,watchdog,scoring,pesq_np,native},
@@ -46,7 +46,7 @@ def test_every_module_imports_with_jax_blocked():
     # tools/{devtime,profile_serving,profile_training,spectrogram_anatomy,
     #        eval_checkpoints,ckpt_npz,ckpt_average,validate_demo,
     #        train_supervisor}, parallel/{mesh,sharding_rules}
-    assert int(r.stdout.strip()) == 60
+    assert int(r.stdout.strip()) == 61
 
 
 _RUN_BLOCKED = r"""
@@ -66,10 +66,12 @@ runpy.run_module(module, run_name="__main__")
     ("nhans_tpu_torch.tools.ckpt_npz", [], 2, "unpack"),
     ("nhans_tpu_torch.tools.validate_demo", ["--help"], 0, "--demo_root"),
     ("nhans_tpu_torch.tools.train_supervisor", ["--help"], 0, "--target"),
+    ("nhans_tpu_torch.bench", ["--help"], 0, "--reference_root"),
 ])
 def test_new_commands_run_with_jax_blocked(module, args, code, needle):
-    """The model-preparation commands and checkpoint tools start as
-    ``python -m`` modules where JAX and nhans_tpu cannot be imported."""
+    """The model-preparation commands, the checkpoint tools and the
+    benchmark harness start as ``python -m`` modules where JAX and
+    nhans_tpu cannot be imported."""
     r = subprocess.run([sys.executable, "-c", _RUN_BLOCKED, module, *args],
                        cwd=REPO, capture_output=True, text=True, timeout=300)
     assert r.returncode == code, r.stderr
