@@ -61,7 +61,15 @@ drives the port's two main paths at full width:
   training steps streamed and banked in float32 and bfloat16 with their
   FLOPs against phase 9's count and ``mfu_est``, and the single-call
   suite on a seeded stand-in reference tree), each result line checked
-  and the kernel's calls on each path counted.
+  and the kernel's calls on each path counted;
+* the installed package (phase 18): ``pip install --no-deps
+  --no-build-isolation --target T`` of a copy of the sources, then
+  ``T/bin/nhans_torch_denoiser`` with a temporary HOME and working
+  directory and jax and nhans_tpu blocked, serving phase 7's input with
+  the shipped weights (within 1e-6 of phase 7) through a kernel that nvcc
+  built from T's sources under HOME/.cache/nhans_tpu_torch; the installed
+  ``dsp.spectrogram`` on the card against its plain version; and the
+  installed ``python -m nhans_tpu_torch.data.loader``.
 
 Any failed check raises, and the script exits non-zero without its result
 line.  Without a CUDA card, or without the rest of the repository, it
@@ -173,6 +181,18 @@ INFER_ITERS = 2
 TRAIN_ITERS = 3
 SUITE_ITERS = 2
 SUITE_SECONDS = 6.0
+
+# phase 18: the installed copy serving phase 7's input against phase 7's
+# output (the same code and weights on the same card); the phase of
+# dsp.spectrogram against the plain version in float64, as
+# |exp(i dphi) - 1| at bins with |X| >= PHASE_FLOOR x max|X| (at the atan2
+# cut raw angles differ by 2 pi, and near |X| = 0 the angle is noise)
+INSTALLED_ATOL = 1e-6
+PHASE_ATOL = 1e-4
+PHASE_FLOOR = 1e-3
+# the lines of python -m nhans_tpu_torch.data.loader (and of the JAX one)
+LOADER_LINE = re.compile(r"^\[(\d+)\] +\d+\.\d\d ms +\d+\.\d MB "
+                         r"\( *\d+\.\d MB/s\)  queue=\d+$")
 
 SR = 16000
 
@@ -1142,6 +1162,205 @@ def phase17(tmp, smi, stft_cuda, step_flops):
     wall = time.perf_counter() - t_phase
     say(f"[17] phase 17 wall time {wall:.1f} s on {smi}")
     return res
+
+
+# Phase 18's process in the installed copy, with jax and nhans_tpu
+# blocked: the installed nhans_torch_denoiser script run as its file with
+# the kernel's calls recorded, then dsp.spectrogram on the card against its
+# plain version; one "P18 {json}" line on stdout.
+_P18_PROC = r"""
+import json, runpy, sys
+for name in ("jax", "jaxlib", "flax", "nhans_tpu"):
+    sys.modules[name] = None
+script, argv = sys.argv[1], sys.argv[2:]
+import numpy as np
+import torch
+from nhans_tpu_torch.dsp import (istft_from_logmag, spectrogram,
+                                 stft_magphase, strided_windows)
+from nhans_tpu_torch.ops import _build, stft_cuda
+
+kernel, shapes = stft_cuda.log_spectrogram_kernel, []
+
+
+def recorded(x, with_reim=False):
+    shapes.append([list(x.shape), with_reim])
+    return kernel(x, with_reim)
+
+
+recorded.launches = 0  # the wrapper counts on the module's name
+stft_cuda.log_spectrogram_kernel = recorded
+sys.argv = [script, *argv]
+try:
+    runpy.run_path(script, run_name="__main__")
+    code = 0
+except SystemExit as e:
+    code = e.code or 0
+torch.cuda.synchronize()
+stft_cuda.log_spectrogram_kernel = kernel
+record = _build._LOADED["log_spectrogram"][1]
+res = {"code": code, "launches": recorded.launches, "shapes": shapes,
+       "lib": record["path"], "build_s": record["seconds"],
+       "module": stft_cuda.__file__}
+
+rng = np.random.default_rng(18)
+x = torch.from_numpy((rng.standard_normal((4, 160000)) * 0.3)
+                     .astype(np.float32)).cuda()
+lm, ph = spectrogram(x)
+lm32, re32, im32 = stft_cuda.log_spectrogram_plain(x, True)
+lm64, re64, im64 = stft_cuda.log_spectrogram_plain(x.double(), True)
+torch.cuda.synchronize()
+mag64 = torch.sqrt(re64 * re64 + im64 * im64)
+keep = mag64 >= PHASE_FLOOR * mag64.max()
+
+
+def phase_err(ref):
+    d = (ph.double() - ref)[keep]
+    return float(torch.sqrt((torch.cos(d) - 1) ** 2
+                            + torch.sin(d) ** 2).max())
+
+
+wave = istft_from_logmag(lm64[0], torch.atan2(im64[0], re64[0]))
+inner = slice(400, wave.shape[-1] - 400)
+mag, _ = stft_magphase(x[:1])
+windows = strided_windows(lm[0], 35)
+res.update(
+    lm_err64=float((lm.double() - lm64).abs().max()),
+    lm_err32=float((lm - lm32).abs().max()),
+    phase_err64=phase_err(torch.atan2(im64, re64)),
+    phase_err32=phase_err(torch.atan2(im32, re32).double()),
+    kept=int(keep.sum()), bins=int(keep.numel()),
+    roundtrip_err=float((wave[inner] - x[0].double()[inner]).abs().max()
+                        / x[0].abs().max()),
+    mag_err=float((mag.double() - mag64[:1]).abs().max() / mag64.max()),
+    windows_ok=bool(tuple(windows.shape) == (lm.shape[1], 35, 201)
+                    and torch.equal(windows[:, 17], lm[0])))
+print("P18 " + json.dumps(res), flush=True)
+""".replace("PHASE_FLOOR", repr(PHASE_FLOOR))
+
+
+def phase18(tmp, corpus, smi, p7):
+    """Phase 18: the installed package, on the card.
+
+    ``setup.py``, ``nhans_tpu/`` and ``nhans_tpu_torch/`` copied to a
+    temporary directory (setuptools writes ``build/`` and ``*.egg-info``
+    beside ``setup.py``) and installed with ``pip install --no-deps
+    --no-build-isolation --target T``.  In T, with ``PYTHONPATH=T``, a
+    temporary working directory and ``HOME``, and jax and nhans_tpu
+    blocked: ``T/bin/nhans_torch_denoiser --checkpoint
+    docs/quality/denoiser_q5_swa.npz`` on phase 7's input exits 0 within
+    INSTALLED_ATOL of phase 7's four wavs, through a kernel that nvcc built
+    from T's sources into ``HOME/.cache/nhans_tpu_torch/build`` (not under
+    T, not under the repository), 2 launches; ``dsp.spectrogram`` on the
+    card at [4, 160000] against the plain version at phase 3's log-magnitude
+    bar and PHASE_ATOL; and, at the same time, ``python -m
+    nhans_tpu_torch.data.loader --iters 3`` on phase 9's corpus.  Returns
+    the launches, the kernel's input shapes and the wall time."""
+    from scipy.io import wavfile
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "p18")
+    src, target = os.path.join(root, "src"), os.path.join(root, "target")
+    home, work = os.path.join(root, "home"), os.path.join(root, "work")
+    for d in (src, home, work):
+        os.makedirs(d)
+    shutil.copy(os.path.join(REPO, "setup.py"), src)
+    for pkg in ("nhans_tpu", "nhans_tpu_torch"):
+        shutil.copytree(os.path.join(REPO, pkg), os.path.join(src, pkg),
+                        ignore=shutil.ignore_patterns("__pycache__", "*.pyc",
+                                                      "*.so"))
+    r = subprocess.run(
+        [sys.executable, "-m", "pip", "install", "--no-deps",
+         "--no-build-isolation", "--no-cache-dir", "--target", target, src],
+        cwd=root, capture_output=True, text=True, timeout=600)
+    check(r.returncode == 0, f"pip install failed:\n{r.stdout}{r.stderr}")
+    pip_s = time.perf_counter() - t0
+    script = os.path.join(target, "bin", "nhans_torch_denoiser")
+    check(os.path.isfile(script), "pip installed no nhans_torch_denoiser")
+
+    env = dict(os.environ, PYTHONPATH=target, HOME=home)
+    loader = subprocess.Popen(
+        [sys.executable, "-m", "nhans_tpu_torch.data.loader", "--iters", "3",
+         "--speech_wav_dir", corpus[0], "--noise_wav_dir", corpus[1]],
+        cwd=home, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        for name in ("in", "neg"):
+            wavfile.write(os.path.join(work, f"{name}.wav"), SR, p7[name])
+        out_wav = os.path.join(work, "out.wav")
+        t_serve = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-c", _P18_PROC, script, "--checkpoint",
+             os.path.join(REPO, "docs", "quality", "denoiser_q5_swa.npz"),
+             "--input", os.path.join(work, "in.wav"), "--neg",
+             os.path.join(work, "neg.wav"), "--pos", "", "--output",
+             out_wav], cwd=work, env=env, capture_output=True, text=True,
+            timeout=600)
+        serve_s = time.perf_counter() - t_serve
+        check(r.returncode == 0, f"installed denoiser failed:\n{r.stderr}")
+        lines = [ln for ln in r.stdout.splitlines() if ln.startswith("P18 ")]
+        check(len(lines) == 1, f"no P18 line:\n{r.stdout}")
+        res = json.loads(lines[0][4:])
+        l_out, l_err = loader.communicate(timeout=300)
+    finally:
+        if loader.poll() is None:
+            loader.kill()
+            loader.wait()
+    check(res["code"] == 0, f"nhans_torch_denoiser exited {res['code']}")
+    shapes = [(tuple(sh), reim) for sh, reim in res["shapes"]]
+    check(res["launches"] == len(shapes) == 2 and sorted(shapes) == [
+        ((1, 52000), True), ((2, 32240), False)],
+        f"installed denoiser: {res['launches']} launches, shapes {shapes}")
+    cache = os.path.realpath(os.path.join(home, ".cache", "nhans_tpu_torch",
+                                          "build"))
+    lib = os.path.realpath(res["lib"])
+    check(lib.startswith(cache + os.sep) and os.path.isfile(lib),
+          f"the kernel library {lib} is not under {cache}")
+    for tree in (target, REPO):
+        check(not lib.startswith(os.path.realpath(tree) + os.sep),
+              f"the kernel library {lib} lies under {tree}")
+    check(res["build_s"] > 0, "the installed copy did not build its kernel")
+    check(os.path.realpath(res["module"]).startswith(
+        os.path.realpath(target) + os.sep),
+        f"stft_cuda came from {res['module']}, not the installed copy")
+    errs = {}
+    for tag, want in p7["out"].items():
+        rate, x = wavfile.read(os.path.join(work, f"out{tag}.wav"))
+        check(rate == SR and x.dtype == np.float32 and len(x) == len(want),
+              f"installed out{tag}.wav format / length")
+        errs[tag] = float(np.abs(x - want).max())
+        check(errs[tag] <= INSTALLED_ATOL, f"installed out{tag}.wav: max "
+              f"|diff| {errs[tag]:.3g} > {INSTALLED_ATOL} from phase 7")
+    check(res["lm_err64"] <= LM_ATOL, f"installed spectrogram: log-magnitude "
+          f"err {res['lm_err64']} against float64")
+    check(res["phase_err64"] <= PHASE_ATOL, f"installed spectrogram: phase "
+          f"err {res['phase_err64']} against float64")
+    check(res["roundtrip_err"] <= 1e-4 and res["mag_err"] <= REIM_EXACT_RTOL
+          and res["windows_ok"], f"installed dsp functions: {res}")
+    check(loader.returncode == 0, f"installed loader failed:\n{l_err}")
+    l_lines = [ln for ln in l_out.splitlines() if ln.startswith("[")]
+    check(len(l_lines) == 3 and all(LOADER_LINE.match(ln) for ln in l_lines),
+          f"installed loader printed:\n{l_out}")
+    wall = time.perf_counter() - t0
+    say(f"[18 installed] pip install --target in {pip_s:.1f} s; "
+        f"T/bin/nhans_torch_denoiser (PYTHONPATH=T, HOME and cwd temporary, "
+        f"jax and nhans_tpu blocked) served phase 7's input in {serve_s:.1f} "
+        f"s with start-up: exit 0, {res['launches']} kernel launches "
+        f"{shapes}, the kernel built by nvcc from T's csrc/ in "
+        f"{res['build_s']:.2f} s into HOME/.cache/nhans_tpu_torch/build/"
+        f"{os.path.basename(lib)}; max |diff| from phase 7 "
+        + ", ".join(f"out{k}.wav {v:.3g}" for k, v in errs.items()))
+    say(f"  dsp.spectrogram [4, 160000] on the card: log-magnitude against "
+        f"float64 {res['lm_err64']:.3g} (float32 plain {res['lm_err32']:.3g}),"
+        f" phase |exp(i dphi) - 1| against float64 {res['phase_err64']:.3g} "
+        f"(float32 plain {res['phase_err32']:.3g}) on {res['kept']} of "
+        f"{res['bins']} bins with |X| >= {PHASE_FLOOR} max|X|; "
+        f"istft_from_logmag round trip {res['roundtrip_err']:.3g} of the "
+        f"peak, stft_magphase {res['mag_err']:.3g} of max|X|")
+    for ln in l_lines:
+        say(f"  python -m nhans_tpu_torch.data.loader (installed): {ln}")
+    say(f"[18] phase 18 wall time {wall:.1f} s, {res['launches']} kernel "
+        f"launches, on {smi}")
+    return {"launches": res["launches"], "shapes": shapes, "wall": wall}
 
 
 def timed_groups(evaluator):
@@ -2148,6 +2367,9 @@ def main() -> int:
 
         # -- 17. the benchmark harness ----------------------------------------
         p17 = phase17(tmp, smi, stft_cuda, step_flops)
+
+        # -- 18. the installed package ----------------------------------------
+        p18 = phase18(tmp, corpus, smi, p7)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2178,7 +2400,9 @@ def main() -> int:
                  for d in ("float32", "bfloat16")), [(16, 63920)]),
             ("bench suite", (8, 512000, True), p17["suite"]["launches"],
              [(2, 32240), (16, 32240), (1, 96000), (8, 96000),
-              (8, 512000)])):
+              (8, 512000)]),
+            ("installed package", (1, 52000, True), p18["launches"],
+             [(2, 32240), (1, 52000)])):
         t = timings[key]
         kernels.append({
             "name": f"log_spectrogram ({path})",
@@ -2233,6 +2457,13 @@ def main() -> int:
                     f"stand-in tree of {SUITE_SECONDS} s mixtures (phase 17);"
                     " times: phase 4 at the 5-minute path's segments"),
             }[path]
+        if path == "installed package":
+            kernels[-1]["note"] = (
+                "launches: T/bin/nhans_torch_denoiser of pip install --target "
+                "T, serving phase 7's input with the kernel that nvcc built "
+                "from T's csrc/ under HOME/.cache/nhans_tpu_torch/build "
+                "(phase 18), contexts [2, 32240] and mixed [1, 52000]; "
+                "times: phase 4 at the mixed shape")
         if path == "training, bfloat16":
             kernels[-1]["note"] = (
                 "launches: the 21 steps of cli.train --dtype bfloat16 "

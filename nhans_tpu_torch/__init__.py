@@ -7,4 +7,6 @@ kernel of the JAX package, the fused spectrogram, is a hand-written CUDA
 kernel here (``ops/stft_cuda.py``, ``csrc/log_spectrogram.cu``).
 """
 
-__version__ = "0.1.0"
+from nhans_tpu_torch.version import __version__
+
+__all__ = ["__version__"]

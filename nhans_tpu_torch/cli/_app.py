@@ -81,16 +81,16 @@ RANDOM_INIT_WARNING = (
 
 def load_weights(cfg: Config, checkpoint: str) -> dict:
     """The ``state_dict`` of ``checkpoint`` (any form
-    ``train/checkpoint.py::load`` takes), or with none the seeded random
-    initialisation and the WARNING on stderr."""
+    ``train/checkpoint.py::load_variables`` takes), or with none the
+    seeded random initialisation and the WARNING on stderr."""
     from nhans_tpu_torch.compat.weights import from_flax
     from nhans_tpu_torch.models import random_init_state
-    from nhans_tpu_torch.train.checkpoint import load
+    from nhans_tpu_torch.train.checkpoint import load_variables
 
     if not checkpoint:
         print(RANDOM_INIT_WARNING, file=sys.stderr)
         return random_init_state(cfg)
-    return from_flax(load(checkpoint)[0])
+    return from_flax(load_variables(checkpoint))
 
 
 def load_enhancer(cfg: Config, checkpoint: str, window_chunk: int = 2048,

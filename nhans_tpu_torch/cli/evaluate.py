@@ -70,5 +70,11 @@ def main(argv=None) -> dict:
     return metrics
 
 
-if __name__ == "__main__":
+def console_main() -> None:
+    """The ``nhans_torch_evaluate`` console script: ``main``, returning
+    None (exit status 0) in place of the metrics."""
     main()
+
+
+if __name__ == "__main__":
+    console_main()

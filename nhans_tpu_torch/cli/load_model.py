@@ -61,5 +61,16 @@ def main_separator(argv=None) -> str:
     return _run("separator", argv)
 
 
-if __name__ == "__main__":
+def console_denoiser() -> None:
+    """The ``nhans_torch_load_denoiser`` console script: ``main_denoiser``,
+    returning None (exit status 0) in place of the output path."""
     main_denoiser()
+
+
+def console_separator() -> None:
+    """The ``nhans_torch_load_separator`` console script."""
+    main_separator()
+
+
+if __name__ == "__main__":
+    console_denoiser()

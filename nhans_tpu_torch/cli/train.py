@@ -151,9 +151,15 @@ def main(argv=None):
     return trainer
 
 
-if __name__ == "__main__":
+def console_main() -> None:
+    """The ``nhans_torch_train`` console script: ``main`` with the
+    process group torn down after it, returning None (exit status 0)."""
     main()
     import torch.distributed as dist
 
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    console_main()

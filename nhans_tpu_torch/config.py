@@ -275,19 +275,9 @@ def add_inference_flags(parser, task: str = "denoiser") -> None:
                              "card: unsplit)")
 
 
-def add_training_flags(parser) -> None:
-    """Register the training flags of the reference toolkit on an argparse
-    parser: the names, defaults and help of the JAX package's
-    ``add_reference_flags(parser, inference=False)``."""
-    import argparse
-
-    # fmt: off
-    parser.add_argument("--recon_residual_cap", type=float, default=2.0,
-                        help="reconstruction-only cap (nats) on the "
-                             "predicted per-bin log-magnitude GAIN over "
-                             "the mixture (serving and evaluation only; "
-                             "the training loss never sees it)")
-    parser.add_argument("--Fs", type=int, default=16000)
+def _add_data_flags(parser) -> None:
+    """The model-geometry, corpus and evaluation flags that the JAX
+    package registers for serving and training alike."""
     parser.add_argument("--context_frames", type=int, default=200)
     parser.add_argument("--window_frames", type=int, default=35)
     parser.add_argument("--random_slices", type=int, default=50)
@@ -317,6 +307,22 @@ def add_training_flags(parser) -> None:
     parser.add_argument("--wav_dump_folder", default="./wav_dump/")
     parser.add_argument("--speech_wav_dir", default="./speech_wav_dir/")
     parser.add_argument("--noise_wav_dir", default="./noise_wav_dir/")
+
+
+def add_training_flags(parser) -> None:
+    """Register the training flags of the reference toolkit on an argparse
+    parser: the names, defaults and help of the JAX package's
+    ``add_reference_flags(parser, inference=False)``."""
+    import argparse
+
+    # fmt: off
+    parser.add_argument("--recon_residual_cap", type=float, default=2.0,
+                        help="reconstruction-only cap (nats) on the "
+                             "predicted per-bin log-magnitude GAIN over "
+                             "the mixture (serving and evaluation only; "
+                             "the training loss never sees it)")
+    parser.add_argument("--Fs", type=int, default=16000)
+    _add_data_flags(parser)
     parser.add_argument("--eval_before_training",
                         action=argparse.BooleanOptionalAction, default=False)
     parser.add_argument("--eval_after_training",
@@ -365,6 +371,20 @@ def add_training_flags(parser) -> None:
     parser.add_argument("--train_mb", type=int, default=64)
     parser.add_argument("--eval_mb", type=int, default=100)
     # fmt: on
+
+
+def add_reference_flags(parser, *, inference: bool = False,
+                        task: str = "denoiser") -> None:
+    """Register the reference toolkit's flags, the counterpart of
+    ``nhans_tpu/config.py::add_reference_flags``, with its names and
+    defaults: the serving flags of ``task`` (``add_inference_flags``,
+    which adds ``--device``) and the data flags, or the training flags
+    (``add_training_flags``)."""
+    if inference:
+        add_inference_flags(parser, task)
+        _add_data_flags(parser)
+    else:
+        add_training_flags(parser)
 
 
 def config_from_args(args, task: str = "denoiser") -> Config:

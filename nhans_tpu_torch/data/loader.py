@@ -10,6 +10,10 @@ the evaluation loader with ``utils/wavio.py``.
 Mixing, spectrograms and crops happen on the device
 (``data/pipeline.py``).  A worker's exception is raised in the consumer,
 not swallowed.
+
+``python -m nhans_tpu_torch.data.loader --speech_wav_dir S
+--noise_wav_dir N [--iters 10]`` prints the training loader's latency,
+size and rate per batch and its queue depth.
 """
 
 from __future__ import annotations
@@ -353,3 +357,41 @@ def prefetch_to_device(iterator, device, depth: int = 2):
             yield item
     finally:
         stop.set()
+
+
+def _main(argv=None) -> None:
+    """Input-pipeline self-test harness: the training loader's batch
+    latency and throughput, the counterpart of ``python -m
+    nhans_tpu.data.loader`` (host only)."""
+    import argparse
+    import time
+
+    from nhans_tpu_torch.config import add_reference_flags, config_from_args
+
+    p = argparse.ArgumentParser(prog="python -m nhans_tpu_torch.data.loader")
+    p.add_argument("--task", choices=("denoiser", "separator"),
+                   default="denoiser")
+    p.add_argument("--split", default="valid")
+    p.add_argument("--batch_utts", type=int, default=16)
+    p.add_argument("--iters", type=int, default=10)
+    add_reference_flags(p, inference=False)
+    args = p.parse_args(argv)
+    cfg = config_from_args(args, task=args.task)
+
+    loader = TrainLoader(cfg, args.batch_utts, split=args.split)
+    try:
+        next(loader)  # warm up workers
+        for i in range(args.iters):
+            t0 = time.perf_counter()
+            batch = next(loader)
+            dt = time.perf_counter() - t0
+            mb = sum(v.nbytes for v in batch.values()) / 1e6
+            print(f"[{i}] {dt * 1e3:8.2f} ms  {mb:7.1f} MB "
+                  f"({mb / max(dt, 1e-9):8.1f} MB/s)  "
+                  f"queue={loader._q.qsize()}")
+    finally:
+        loader.close()
+
+
+if __name__ == "__main__":
+    _main()

@@ -18,6 +18,9 @@ import torch
 from nhans_tpu_torch.config import Config
 from nhans_tpu_torch.dsp import mixing as mx
 from nhans_tpu_torch.dsp import spectral as sp
+from nhans_tpu_torch.dsp.windowing import (pad_amounts, pad_for_windowing,
+                                           rest_crop_indices,
+                                           window_gather_indices)
 from nhans_tpu_torch.utils.device import to_device
 
 Draws = Dict[str, torch.Tensor]
@@ -114,7 +117,7 @@ def make_train_batch(cfg: Config, clean: torch.Tensor, noise_a: torch.Tensor,
     K = int(slices or cfg.data.slices_per_step)
     B, L = clean.shape
     W, C = m.window_frames, m.context_frames
-    pad_before = ((W + 1) // 2) - 1
+    pad_before = pad_amounts(W)[0]
     dev = clean.device
     first, total = rows or (0, B)
     if draws is None:
@@ -196,12 +199,9 @@ def make_train_batch(cfg: Config, clean: torch.Tensor, noise_a: torch.Tensor,
     lm_ctx_a = zero_tail(lm_ctx_a, nf_ctx_a)
     lm_ctx_b = zero_tail(lm_ctx_b, nf_ctx_b)
 
-    def pad(x):  # the frame axis, for windowing
-        return torch.nn.functional.pad(x, (0, 0, pad_before, W // 2))
-
-    lm_mixed_p = pad(lm_mixed)
-    lm_ctx_a_p = pad(lm_ctx_a)
-    lm_ctx_b_p = pad(lm_ctx_b)
+    lm_mixed_p = pad_for_windowing(lm_mixed, W)
+    lm_ctx_a_p = pad_for_windowing(lm_ctx_a, W)
+    lm_ctx_b_p = pad_for_windowing(lm_ctx_b, W)
     nfeat = lm_mixed.shape[2]
 
     def take_frames(lm_p, idx):
@@ -232,8 +232,8 @@ def make_train_batch(cfg: Config, clean: torch.Tensor, noise_a: torch.Tensor,
         r = (uk.to(torch.float32) * (rest_max + 1).to(torch.float32)
              ).to(torch.int64)                                     # [B, K]
         ar = torch.arange(C, device=dev)[None, None, :]
-        idx = r[..., None] + ar                                    # [B,K,C]
-        idx = idx + torch.where(idx >= winstart[..., None], W, 0)
+        idx = rest_crop_indices(r[..., None], C, winstart[..., None],
+                                W)                                 # [B,K,C]
         short = (nf_src[:, None, None] - 1) < C                    # [B,1,1]
         idx_short = pad_before + ar % torch.clamp(
             nf_src, min=1)[:, None, None]
@@ -267,7 +267,6 @@ def make_eval_batch(cfg: Config, mixed: torch.Tensor, target: torch.Tensor,
     a, m = cfg.audio, cfg.model
     fl, fs = a.frame_length, a.frame_step
     W, C = m.window_frames, m.context_frames
-    pad_before = ((W + 1) // 2) - 1
 
     lm_mixed, re, im = sp.spectrogram_reim(mixed, fl, fs, a.log_eps)
     lm_target = sp.log_spectrogram(target, fl, fs, a.log_eps)
@@ -277,12 +276,10 @@ def make_eval_batch(cfg: Config, mixed: torch.Tensor, target: torch.Tensor,
     nf = _valid_frames(_whole_frames(n, fl, fs), fl, fs)
     nwin = lm_mixed.shape[-2] - C
     rest = lm_mixed[..., C:, :]
-    padded = torch.nn.functional.pad(rest, (0, 0, pad_before, W // 2))
+    padded = pad_for_windowing(rest, W)
     dev = lm_mixed.device
-    idx = (torch.arange(nwin, device=dev)[:, None]
-           + torch.arange(W, device=dev)[None, :])
     return {
-        "mixed": padded[..., idx, :],
+        "mixed": padded[..., window_gather_indices(nwin, W, device=dev), :],
         "target": lm_target[..., C:, :],
         "mixed_lm": rest,
         "mixed_ph": torch.atan2(im, re)[..., C:, :],

@@ -12,10 +12,11 @@ The DFTs are products with windowed bases built in float64 and cast to
 the working type, as in the JAX package.  ``torch.stft``/``torch.istft``
 are not used: their window normalisation is not TF's.
 
-``spectrogram_reim`` and ``log_spectrogram`` are the serving front end:
-they go through ``nhans_tpu_torch.ops.stft_cuda.log_spectrogram_kernel``,
-which launches the hand-written CUDA kernel for a CUDA tensor and runs the
-framed-matmul DFT below for a CPU tensor.
+``spectrogram_reim``, ``spectrogram`` and ``log_spectrogram`` are the
+serving front end: they go through
+``nhans_tpu_torch.ops.stft_cuda.log_spectrogram_kernel``, which launches
+the hand-written CUDA kernel for a CUDA tensor and runs the framed-matmul
+DFT below for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -123,6 +124,13 @@ def log_magnitude(re: torch.Tensor, im: torch.Tensor,
     return torch.log(torch.sqrt(re * re + im * im) + eps)
 
 
+def stft_magphase(x: torch.Tensor, frame_length: int = 400,
+                  frame_step: int = 160) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(magnitude, phase) of the STFT, from the framed-matmul ``stft``."""
+    re, im = stft(x, frame_length, frame_step)
+    return torch.sqrt(re * re + im * im), torch.atan2(im, re)
+
+
 def _check_geometry(frame_length: int, frame_step: int, eps: float) -> None:
     if (frame_length, frame_step, eps) != (400, 160, 1e-5):
         raise ValueError(
@@ -148,6 +156,16 @@ def spectrogram_reim(x: torch.Tensor, frame_length: int = 400,
     _check_geometry(frame_length, frame_step, eps)
     lm, re, im = stft_cuda.log_spectrogram_kernel(_as_rows(x), with_reim=True)
     return (lm[0], re[0], im[0]) if x.ndim == 1 else (lm, re, im)
+
+
+def spectrogram(x: torch.Tensor, frame_length: int = 400,
+                frame_step: int = 160, eps: float = 1e-5
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(log_magnitude, phase) of [L] or [B, L], the model's input
+    representation: ``spectrogram_reim`` (the CUDA kernel with re/im on a
+    card), then arctan2(im, re)."""
+    lm, re, im = spectrogram_reim(x, frame_length, frame_step, eps)
+    return lm, torch.atan2(im, re)
 
 
 def log_spectrogram(x: torch.Tensor, frame_length: int = 400,
@@ -203,3 +221,13 @@ def istft(re: torch.Tensor, im: torch.Tensor, frame_length: int = 400,
     syn = synthesis_window(frame_length, frame_step, frames.dtype,
                            frames.device)
     return overlap_add(frames * syn, frame_step)
+
+
+def istft_from_logmag(logmag: torch.Tensor, phase: torch.Tensor,
+                      frame_length: int = 400,
+                      frame_step: int = 160) -> torch.Tensor:
+    """A waveform from (log-magnitude, phase): exp, then re/im, then
+    ``istft``; the reference's reconstruction with the mixed phase."""
+    mag = torch.exp(logmag)
+    return istft(mag * torch.cos(phase), mag * torch.sin(phase),
+                 frame_length, frame_step)

@@ -29,10 +29,10 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from nhans_tpu_torch.config import Config
 from nhans_tpu_torch.dsp import spectral as sp
+from nhans_tpu_torch.dsp.windowing import pad_amounts, pad_for_windowing
 from nhans_tpu_torch.nn.model import NHANSNet
 from nhans_tpu_torch.utils.device import full_float32, resolve_device
 
@@ -61,7 +61,7 @@ def window_residuals(model: NHANSNet, logmag: torch.Tensor,
     the rows' context embeddings."""
     W = model.cfg.window_frames
     B, nframes, nfeat = logmag.shape
-    padded = F.pad(logmag, (0, 0, (W + 1) // 2 - 1, W // 2))
+    padded = pad_for_windowing(logmag, W)
     flat_spec = padded.reshape(-1, nfeat)
     fp = nframes + W - 1
     karange = torch.arange(W, device=logmag.device)
@@ -350,7 +350,7 @@ class Enhancer:
         and last windows."""
         a = self.cfg.audio
         fl, fs = a.frame_length, a.frame_step
-        H = ((self.cfg.model.window_frames + 1) // 2) - 1  # 17
+        H = pad_amounts(self.cfg.model.window_frames)[0]  # 17
         ctx_n = context_samples(self.cfg)
 
         wav, n, peak = self.prepare_wave(mixed)

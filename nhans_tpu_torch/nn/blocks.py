@@ -210,6 +210,18 @@ def trunc_normal_(w: torch.Tensor, std: float,
         return w.copy_(u.view(w.shape) * std)
 
 
+def trunc_normal(std: float):
+    """An initializer ``(shape, generator, device=None) -> Tensor`` that
+    draws as ``trunc_normal_``, the counterpart of the flax initializer
+    ``nhans_tpu/nn/blocks.py::trunc_normal``."""
+
+    def init(shape, generator: torch.Generator, device=None) -> torch.Tensor:
+        return trunc_normal_(torch.empty(shape, device=device), std,
+                             generator)
+
+    return init
+
+
 class BatchNorm(nn.Module):
     """Batch norm over dim 1 (channels of NCHW, features of [N, C]), eps
     1e-3: ``(x - mean) * rsqrt(var + eps) * gamma + beta``.
@@ -296,3 +308,9 @@ def frozen_stats(module: nn.Module):
         for bn, flag in zip(bns, saved):
             bn.update_stats = flag
 
+
+def reverse_gradient(x: torch.Tensor, gradient_factor) -> torch.Tensor:
+    """-g*x + detach((g+1)*x): the identity forward, the gradient scaled
+    by -g (the reference's gradient-reversal trick)."""
+    return (-gradient_factor * x
+            + ((gradient_factor + 1) * x).detach())

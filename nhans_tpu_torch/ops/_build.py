@@ -2,10 +2,12 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled with
 ``nvcc`` for ``sm_90a``; each ``csrc/<name>.cpp`` (host code) with the
-host C++ compiler.  The library goes to
+host C++ compiler.  At first use the library goes to
 ``build/nhans_tpu_torch/lib<name>-<hash>.so`` under the repository root
-at first use.  The hash is that of the source and the flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is.  A build
+in a checkout (the package's parent directory holds ``setup.py``), and to
+``~/.cache/nhans_tpu_torch/build/`` in an installed copy, whose tree may
+not be writable.  The hash is that of the source and the flags, so an
+edited source is rebuilt and an unchanged one is loaded as it is.  A build
 writes a temporary file and renames it into place, so processes that
 build at once leave one whole library.  No PyTorch header is compiled: a
 build takes seconds.
@@ -24,7 +26,11 @@ import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "nhans_tpu_torch")
+_ROOT = os.path.dirname(_PKG)
+BUILD_DIR = (os.path.join(_ROOT, "build", "nhans_tpu_torch")
+             if os.path.isfile(os.path.join(_ROOT, "setup.py")) else
+             os.path.join(os.path.expanduser("~"), ".cache",
+                          "nhans_tpu_torch", "build"))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-pthread", "-shared")

@@ -19,7 +19,7 @@ import os
 
 import numpy as np
 
-from nhans_tpu_torch.train.checkpoint import load, save_variables
+from nhans_tpu_torch.train.checkpoint import load_variables, save_variables
 
 
 def average_variables(flats):
@@ -52,7 +52,8 @@ def main(argv=None) -> str:
     steps = [int(s) for s in args.steps.split(",")]
     flats = []
     for s in steps:
-        flats.append(load(os.path.join(args.checkpoint_root, str(s)))[0])
+        flats.append(load_variables(os.path.join(args.checkpoint_root,
+                                                  str(s))))
         print(f"loaded step {s}")
     if any(set(f) != set(flats[0]) for f in flats):
         raise SystemExit("error: the checkpoints hold different variables")

@@ -19,12 +19,12 @@ import sys
 
 import numpy as np
 
-from nhans_tpu_torch.train.checkpoint import load, save_variables
+from nhans_tpu_torch.train.checkpoint import load_variables, save_variables
 
 
 def pack(src: str, dst: str) -> dict:
     """Write ``src``'s variables to ``dst``; returns what was written."""
-    variables, _ = load(src)
+    variables = load_variables(src)
     comp = {k: (v.astype(np.float16)
                 if v.dtype == np.float32 and not k.startswith("batch_stats/")
                 else v) for k, v in variables.items()}

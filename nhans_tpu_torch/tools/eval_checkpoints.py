@@ -76,8 +76,8 @@ def main(argv=None) -> list:
     out = open(args.jsonl, "a") if args.jsonl else None
     try:
         for step in steps:
-            variables, _ = ckpt.load(os.path.join(args.checkpoint_root,
-                                                  str(step)))
+            variables = ckpt.load_variables(
+                os.path.join(args.checkpoint_root, str(step)))
             loader = EvalLoader(cfg, limit=args.eval_utts or None)
             metrics = evaluator.run(
                 from_flax(variables), loader, step=step, modelname="sweep",

@@ -110,15 +110,14 @@ def save_variables(directory: str, variables: Dict[str, np.ndarray]) -> str:
     return final
 
 
-def load(path: str) -> Tuple[dict, Optional[dict]]:
-    """(variables, train_state or None) of a flat ``.npz`` (inference
-    variables only), a variables directory, a step directory or a run
-    root (``resolve``).  An Orbax directory of the JAX package is
+def _archives(path: str) -> Tuple[str, Optional[str]]:
+    """(the ``.npz`` of a checkpoint's variables, its ``train_state.npz``
+    or None) for a flat ``.npz``, a variables directory, a step directory
+    or a run root (``resolve``).  An Orbax directory of the JAX package is
     refused: export it as a flat ``.npz`` with the JAX package's
     ``tools/ckpt_npz.py pack`` first."""
     if path.endswith(".npz") and os.path.isfile(path):
-        with np.load(path) as z:
-            return {k: z[k] for k in z.files}, None
+        return path, None
     step_dir = resolve(path)
     if is_orbax(step_dir):
         raise ValueError(
@@ -126,15 +125,42 @@ def load(path: str) -> Tuple[dict, Optional[dict]]:
             "nhans_tpu_torch cannot read; export its variables on a "
             f"machine with JAX with `python tools/ckpt_npz.py pack {path} "
             "<out.npz>` and pass the .npz")
-    if not os.path.exists(os.path.join(step_dir, VARIABLES)):
+    variables = os.path.join(step_dir, VARIABLES)
+    if not os.path.exists(variables):
         raise FileNotFoundError(f"no checkpoint at {path}")
-    with np.load(os.path.join(step_dir, VARIABLES)) as z:
-        variables = {k: z[k] for k in z.files}
-    extra = None
-    if os.path.exists(os.path.join(step_dir, TRAIN_STATE)):
-        with np.load(os.path.join(step_dir, TRAIN_STATE)) as z:
-            extra = {k: z[k] for k in z.files}
-    return variables, extra
+    state = os.path.join(step_dir, TRAIN_STATE)
+    return variables, (state if os.path.exists(state) else None)
+
+
+def _read(npz: str) -> Dict[str, np.ndarray]:
+    with np.load(npz) as z:
+        return {k: z[k] for k in z.files}
+
+
+def load(path: str) -> Tuple[dict, Optional[dict]]:
+    """(variables, train_state or None) of a checkpoint in any form
+    ``_archives`` takes; a flat ``.npz`` holds inference variables
+    only."""
+    variables, state = _archives(path)
+    return _read(variables), (_read(state) if state else None)
+
+
+def load_variables(path: str) -> Dict[str, np.ndarray]:
+    """The flat inference variables (``params/...``, ``batch_stats/...``)
+    of a checkpoint in any form ``load`` takes, without its train
+    state."""
+    return _read(_archives(path)[0])
+
+
+def checkpoint_keys(path: str) -> frozenset:
+    """The top-level keys of a checkpoint (any form ``load`` takes), read
+    from the archives' directories without loading an array: a full train
+    state carries ``opt_state`` and ``step``, inference variables only
+    ``params`` and ``batch_stats``."""
+    variables, state = _archives(path)
+    with np.load(variables) as z:
+        keys = {k.split("/", 1)[0] for k in z.files}
+    return frozenset(keys | ({"opt_state", "step"} if state else set()))
 
 
 class Checkpointer:

@@ -1,8 +1,8 @@
 """ctypes binding of the threaded wav decoder ``csrc/nhans_native.cpp``:
 the port of ``nhans_tpu/utils/native.py``, with the same functions.
 
-The library is built at first use with the host C++ compiler into
-``build/nhans_tpu_torch/`` (``ops/_build.py::load_host``).  Where it
+The library is built at first use (or by ``ensure_built``) with the host
+C++ compiler into ``ops/_build.py::BUILD_DIR`` (``load_host``).  Where it
 cannot be built, ``available()`` is False and callers decode with
 ``utils/wavio.py`` instead, which gives the same samples.
 """
@@ -25,16 +25,27 @@ _I64 = ctypes.POINTER(ctypes.c_int64)
 _lib = None
 
 
+def ensure_built(quiet: bool = True) -> bool:
+    """Build the library if it is missing; whether it is available: False
+    when no host compiler is found or the build fails, whose reason is
+    printed unless ``quiet``."""
+    try:
+        _build.load_host("nhans_native")
+    except (RuntimeError, OSError) as err:
+        if not quiet:
+            print(f"native wav decoder unavailable ({err}); decoding with "
+                  "numpy", flush=True)
+        return False
+    return True
+
+
 def _load() -> Optional[ctypes.CDLL]:
     global _lib
     if _lib is None:
-        try:
-            lib, _ = _build.load_host("nhans_native")
-        except (RuntimeError, OSError) as err:
-            print(f"native wav decoder unavailable ({err}); decoding with "
-                  "numpy", flush=True)
+        if not ensure_built(quiet=False):
             _lib = False
             return None
+        lib, _ = _build.load_host("nhans_native")
         lib.nhans_read_wav.restype = ctypes.c_int64
         lib.nhans_read_wav.argtypes = [ctypes.c_char_p, _F32, ctypes.c_int64,
                                        ctypes.c_int32, _F32]

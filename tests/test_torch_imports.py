@@ -35,7 +35,8 @@ def test_every_module_imports_with_jax_blocked():
     r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    # config, bench, 12 subpackages, dsp/{spectral,mixing},
+    # config, version, bench, 12 subpackages,
+    # dsp/{spectral,mixing,windowing},
     # ops/{_build,stft_cuda}, nn/{blocks,model},
     # compat/{weights,tf_bundle,tf_import}, infer/enhance,
     # utils/{device,wavio,tb_events,watchdog,scoring,pesq_np,native},
@@ -46,7 +47,7 @@ def test_every_module_imports_with_jax_blocked():
     # tools/{devtime,profile_serving,profile_training,spectrogram_anatomy,
     #        eval_checkpoints,ckpt_npz,ckpt_average,validate_demo,
     #        train_supervisor}, parallel/{mesh,sharding_rules}
-    assert int(r.stdout.strip()) == 61
+    assert int(r.stdout.strip()) == 63
 
 
 _RUN_BLOCKED = r"""
