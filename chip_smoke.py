@@ -69,7 +69,12 @@ drives the port's two main paths at full width:
   the shipped weights (within 1e-6 of phase 7) through a kernel that nvcc
   built from T's sources under HOME/.cache/nhans_tpu_torch; the installed
   ``dsp.spectrogram`` on the card against its plain version; and the
-  installed ``python -m nhans_tpu_torch.data.loader``.
+  installed ``python -m nhans_tpu_torch.data.loader``;
+* the JAX package's Orbax checkpoints (phase 19): the committed narrow
+  fixtures (tests/data/orbax) read by the port's own OCDBT/zarr reader,
+  served from the variables directory against its ``.npz`` twin, and the
+  next step after ``cli.train --restore_path <Adam run root>`` against the
+  JAX package's next step, with the time of each read.
 
 Any failed check raises, and the script exits non-zero without its result
 line.  Without a CUDA card, or without the rest of the repository, it
@@ -1363,6 +1368,108 @@ def phase18(tmp, corpus, smi, p7):
     return {"launches": res["launches"], "shapes": shapes, "wall": wall}
 
 
+def phase19(tmp, smi, p7):
+    """Phase 19: the JAX package's Orbax checkpoints, read by the port's
+    own reader (tests/data/orbax: written by the JAX package's
+    save_variables and Checkpointer at the narrow widths of
+    tests/make_torch_golden.py's ORBAX_MODEL, the full-width model's
+    names; no JAX here).
+
+    (a) The serving command line in this process, its model narrowed to
+        the fixture's widths (it has no width flags), with ``--checkpoint
+        <the variables directory>`` on phase 7's input: the same wavs as
+        with the directory's ``.npz`` twin (0 max |diff|), 2 kernel
+        launches.
+    (b) ``cli.train``'s Trainer with ``--restore_path <the Adam run root>
+        --alg adam`` (the model narrowed): it continues at step 1 with
+        update count 1, and its next step on the golden's inputs and
+        draws lies within phase 8's bars of the JAX package's next step
+        (tests/data/orbax/next_step.npz); 4 kernel launches.
+    The wall time of each fixture's first read in this process is
+    recorded.  Returns the launches and kernel input shapes of (a) and
+    (b)."""
+    import torch
+
+    from nhans_tpu_torch.cli import _app
+    from nhans_tpu_torch.config import Config
+    from nhans_tpu_torch.ops import stft_cuda
+    from nhans_tpu_torch.train import checkpoint as ckpt
+    from tests.make_torch_golden import (golden_train_inputs, input_digest,
+                                         narrow, orbax_paths, port_orbax_step,
+                                         port_orbax_trainer)
+
+    t_phase = time.perf_counter()
+    paths = orbax_paths()
+    root = os.path.join(tmp, "p19")
+    os.makedirs(root)
+    reads = {}
+    for name in ("variables", "run"):
+        t0 = time.perf_counter()
+        variables, state = ckpt.load(paths[name], alg="adam")
+        reads[name] = time.perf_counter() - t0
+        n = len(variables) + len(state or {})
+        say(f"[19 read] {name} fixture: {n} arrays in {reads[name]:.3f} s "
+            "(first read in this process)")
+
+    # (a) serving from the variables directory and from its twin
+    class NarrowConfig:
+        """Config, its serving models at the fixture's widths."""
+        denoiser = staticmethod(lambda: narrow(Config.denoiser()))
+        separator = staticmethod(lambda: narrow(Config.separator()))
+
+    wavs = (p7["in"], None, p7["neg"])
+    wide, _app.Config = _app.Config, NarrowConfig
+    try:
+        got, _, _, serve_launches, serve_shapes = served_wavs(
+            os.path.join(root, "orbax"), "denoiser", paths["variables"],
+            stft_cuda, wavs)
+        twin, _, _, _, _ = served_wavs(os.path.join(root, "npz"), "denoiser",
+                                       paths["npz"], stft_cuda, wavs)
+    finally:
+        _app.Config = wide
+    check(serve_launches == 2, f"Orbax serving: {serve_launches} launches")
+    check(sorted(got) == sorted(twin), "Orbax serving: output files")
+    errs = {tag: float(np.abs(got[tag] - twin[tag]).max()) for tag in twin}
+    check(max(errs.values()) == 0.0, f"Orbax serving against the .npz twin: "
+          f"{errs}")
+    say(f"[19a serve] cli.denoiser --checkpoint tests/data/orbax/variables "
+        f"(narrowed) on phase 7's input: {serve_launches} kernel launches "
+        f"({serve_shapes}); max |diff| from the .npz twin " + ", ".join(
+            f"out{tag} {v:.3g}" for tag, v in errs.items()))
+
+    # (b) the next step after --restore_path
+    with np.load(paths["golden"]) as z:
+        golden = {k: z[k] for k in z.files}
+    check(str(golden["input_sha256"]) == input_digest(
+        *golden_train_inputs(int(golden["seed"])).values()),
+        "Orbax golden inputs do not regenerate")
+    t0 = time.perf_counter()
+    trainer = port_orbax_trainer(paths["run"], "adam", "cuda", root)
+    restore_s = time.perf_counter() - t0
+    check(trainer.tstep == int(golden["step"]) == 1
+          and int(trainer.state.opt_state["count"]) == 1,
+          f"resumed at step {trainer.tstep}, count "
+          f"{trainer.state.opt_state['count']}")
+    torch.cuda.synchronize()
+    stft_cuda.log_spectrogram_kernel.launches = 0
+    with kernel_shapes(stft_cuda) as step_shapes:
+        step = port_orbax_step(trainer, golden)
+    torch.cuda.synchronize()
+    step_launches = stft_cuda.log_spectrogram_kernel.launches
+    check(step_launches == 4, f"resumed step: {step_launches} launches")
+    say(f"[19b resume] Trainer built in {restore_s:.2f} s, at step "
+        f"{trainer.tstep}; " + step_errors(
+            step, golden, "cli.train --restore_path <Orbax run> --alg adam, "
+            "next step against the JAX package's")
+        + f"; {step_launches} kernel launches ({step_shapes})")
+    del trainer
+    wall = time.perf_counter() - t_phase
+    say(f"[19] phase 19 wall time {wall:.1f} s on {smi}")
+    return {"serve_launches": serve_launches, "serve_shapes": serve_shapes,
+            "step_launches": step_launches, "step_shapes": step_shapes,
+            "reads": reads}
+
+
 def timed_groups(evaluator):
     """Wrap the evaluator's device work per group: (card ms by CUDA events
     from its first copy to the host to its last, host wall s) for each."""
@@ -1456,7 +1563,7 @@ def main() -> int:
               ((8, 256000), True), ((2, 32240), False), ((1, 52000), True),
               ((1, 48000), True), ((16, 160000), True), ((32, 32240), False),
               ((16, 63920), False), ((1, 96000), True), ((8, 96000), True),
-              ((8, 512000), True)]
+              ((8, 512000), True), ((1, 42000), False)]
     for shape, with_reim in shapes:
         x = torch.from_numpy(
             (rng.standard_normal(shape) * 0.3).astype(np.float32)).to(dev)
@@ -1536,7 +1643,7 @@ def main() -> int:
                             (8, 163600, False), (8, 256000, True),
                             (1, 52000, True), (1, 48000, True),
                             (16, 160000, True), (16, 63920, False),
-                            (8, 512000, True)):
+                            (8, 512000, True), (1, 42000, False)):
         x = torch.from_numpy((rng.standard_normal((B, L)) * 0.3)
                              .astype(np.float32)).to(dev)
         F = sp.num_frames(L)
@@ -2370,6 +2477,9 @@ def main() -> int:
 
         # -- 18. the installed package ----------------------------------------
         p18 = phase18(tmp, corpus, smi, p7)
+
+        # -- 19. the JAX package's Orbax checkpoints ------------------------------
+        p19 = phase19(tmp, smi, p7)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2402,7 +2512,11 @@ def main() -> int:
              [(2, 32240), (16, 32240), (1, 96000), (8, 96000),
               (8, 512000)]),
             ("installed package", (1, 52000, True), p18["launches"],
-             [(2, 32240), (1, 52000)])):
+             [(2, 32240), (1, 52000)]),
+            ("serving, Orbax checkpoint", (1, 52000, True),
+             p19["serve_launches"], [(2, 32240), (1, 52000)]),
+            ("training, resumed from Orbax", (1, 42000, False),
+             p19["step_launches"], [(1, 42000)])):
         t = timings[key]
         kernels.append({
             "name": f"log_spectrogram ({path})",
@@ -2464,6 +2578,24 @@ def main() -> int:
                 "from T's csrc/ under HOME/.cache/nhans_tpu_torch/build "
                 "(phase 18), contexts [2, 32240] and mixed [1, 52000]; "
                 "times: phase 4 at the mixed shape")
+        if path == "serving, Orbax checkpoint":
+            check(sorted(set(p19["serve_shapes"])) == [((1, 52000), True),
+                                                       ((2, 32240), False)],
+                  f"Orbax serving shapes {p19['serve_shapes']}")
+            kernels[-1]["note"] = (
+                "launches: the serving command line (model narrowed to the "
+                "fixture's widths) with --checkpoint tests/data/orbax/"
+                "variables, an Orbax directory of the JAX package read by "
+                "compat/orbax.py (phase 19 (a)), contexts [2, 32240] and "
+                "mixed [1, 52000]; times: phase 4 at the mixed shape")
+        if path == "training, resumed from Orbax":
+            check(sorted(set(p19["step_shapes"])) == [((1, 42000), False)],
+                  f"resumed step shapes {p19['step_shapes']}")
+            kernels[-1]["note"] = (
+                "launches: the next step of cli.train's Trainer with "
+                "--restore_path tests/data/orbax/run --alg adam (phase 19 "
+                "(b)), one utterance x 2 crops; times: phase 4 at the same "
+                "shape")
         if path == "training, bfloat16":
             kernels[-1]["note"] = (
                 "launches: the 21 steps of cli.train --dtype bfloat16 "

@@ -7,7 +7,8 @@
 
 ``--checkpoint`` is a step directory the port's trainer wrote (or its
 ``<checkpoint_dir>`` root: the latest step), a variables directory or a
-flat ``.npz`` of weights; without it the command scores the seeded
+flat ``.npz`` of weights, or the JAX package's Orbax step directory, run
+root or variables directory; without it the command scores the seeded
 random initialisation of the serving CLIs (a WARNING on stderr), whose
 scores equal the JAX command's ``PRNGKey(0)`` init.  It prints the split,
 then the loss and the scores (SI-SDR, STOI, ESTOI, PESQ) over the

@@ -329,10 +329,11 @@ def add_training_flags(parser) -> None:
                         action=argparse.BooleanOptionalAction, default=True)
     parser.add_argument("--checkpoints_to_keep", type=int, default=1000000)
     parser.add_argument("--restore_path", default="",
-                        help="a checkpoint step directory of this package "
-                             "(full train state) or a flat .npz of "
-                             "params/batch_stats (fine-tune: fresh "
-                             "optimizer, step 0)")
+                        help="a step directory or run root (full train "
+                             "state), or a variables directory or flat "
+                             ".npz of params/batch_stats (fine-tune: fresh "
+                             "optimizer, step 0), of this package or of "
+                             "the JAX package's Orbax")
     parser.add_argument("--model_name", default="nhans")
     parser.add_argument("--checkpoint_dir", default="./checkpoints")
     parser.add_argument("--summaries_dir", default="./summaries")

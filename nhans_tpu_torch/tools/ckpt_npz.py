@@ -2,14 +2,15 @@
 checkpoint of the port and a single float16-compressed ``.npz``, the
 format the shipped ``docs/quality/*_q5_swa.npz`` come in: float16
 ``params/...`` and float32 ``batch_stats/...`` (their dynamic range
-matters).  The port of ``tools/ckpt_npz.py``, whose Orbax side needs JAX.
+matters).  The port of ``tools/ckpt_npz.py``.
 
     python -m nhans_tpu_torch.tools.ckpt_npz pack   <checkpoint> <out.npz>
     python -m nhans_tpu_torch.tools.ckpt_npz unpack <in.npz> <variables dir>
 
 ``pack`` takes any checkpoint ``train/checkpoint.py::load`` reads (a step
-directory or its run root, a variables directory, a flat ``.npz``);
-``unpack`` writes a variables directory (``save_variables``).
+directory or its run root, a variables directory, a flat ``.npz``, the
+port's or the JAX package's Orbax forms); ``unpack`` writes the port's
+variables directory (``save_variables``).
 """
 
 from __future__ import annotations

@@ -8,9 +8,10 @@ with ``--jsonl``, appended to a file.
         --speech_wav_dir corpus/speech --noise_wav_dir corpus/noise \\
         --eval_seeds valid_seen --jsonl seen.jsonl
 
-``--checkpoint_root`` is the directory of the port's step directories
-(``<checkpoint_dir>/<model_name>``); without ``--steps`` every saved step
-is scored.  ``--device`` (default ``cuda``) chooses the card or ``cpu``.
+``--checkpoint_root`` is the directory of a run's step directories
+(``<checkpoint_dir>/<model_name>``), the port's or the JAX package's
+Orbax steps; without ``--steps`` every saved step is scored.
+``--device`` (default ``cuda``) chooses the card or ``cpu``.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--task", choices=("denoiser", "separator"),
                    default="separator")
     p.add_argument("--checkpoint_root", required=True,
-                   help="the run's directory of <step>/ subdirectories")
+                   help="the run's directory of <step>/ subdirectories "
+                        "(the port's or Orbax's)")
     p.add_argument("--steps", default="",
                    help="comma-separated steps (default: all saved)")
     p.add_argument("--speech_wav_dir", required=True)
@@ -65,8 +67,7 @@ def main(argv=None) -> list:
         noise_wav_dir=args.noise_wav_dir, eval_seeds=args.eval_seeds,
         eval_pairing=args.eval_pairing))
     steps = ([int(s) for s in args.steps.split(",")] if args.steps
-             else sorted(int(d) for d in os.listdir(args.checkpoint_root)
-                         if d.isdigit()))
+             else ckpt.list_steps(args.checkpoint_root, orbax_steps=True))
     try:
         device = resolve_device(args.device)
     except RuntimeError as err:

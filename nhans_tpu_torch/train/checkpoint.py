@@ -1,8 +1,8 @@
 """Checkpoints of training: step directories with keep-K and auto-resume,
 the port of ``nhans_tpu/train/checkpoint.py``.
 
-The JAX package writes Orbax directories, which the port cannot read.
-The port writes its own: ``<checkpoint_dir>/<model_name>/<step>/`` holds
+The port writes its own form: ``<checkpoint_dir>/<model_name>/<step>/``
+holds
 
 * ``variables.npz``: the flat float32 ``params/...`` and
   ``batch_stats/...`` arrays under the flax names, conv kernels HWIO, the
@@ -20,6 +20,15 @@ writes an Orbax directory.  Both files hold full tensors: a
 tensor-parallel run joins its model-axis blocks before it saves, and
 ``load_into`` cuts them again for a model whose wide kernels hold blocks
 (``parallel/sharding_rules.py``), so a checkpoint loads on any mesh.
+
+The readers (``load``, ``load_variables``, ``checkpoint_keys``) also take
+the Orbax directories the JAX package writes (``compat/orbax.py``): a
+``save_variables`` directory, a ``Checkpointer`` step directory
+(``<step>/default``) and its run root (``<checkpoint_dir>`` or
+``<checkpoint_dir>/<model_name>``: the latest step).  They give the same
+flat dicts as the port's own form; a train state's optax tree is mapped
+onto the port's optimizer slots by ``OPTAX_SLOTS``.  Auto-resume and the
+writers stay on the port's own form.
 """
 
 from __future__ import annotations
@@ -31,13 +40,29 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from nhans_tpu_torch.compat import orbax
 from nhans_tpu_torch.compat.weights import from_flax, to_flax
 from nhans_tpu_torch.parallel.sharding_rules import cut_full, model_shards
 
 VARIABLES = "variables.npz"
 TRAIN_STATE = "train_state.npz"
-_ORBAX_MARKERS = ("_CHECKPOINT_METADATA", "manifest.ocdbt", "_METADATA",
-                  "default")
+# what marks a directory as Orbax's: a step directory nests its tree
+# under default/, which counts only where it holds the tree's _METADATA
+_ORBAX_MARKERS = ("_CHECKPOINT_METADATA", "manifest.ocdbt", orbax.METADATA,
+                  os.path.join("default", orbax.METADATA))
+# optax's state tree under ``opt_state`` for each --alg (optax 0.2.6 as
+# nhans_tpu/train/optim.py chains it): {"<chain index>/<field>": the
+# port's slot}.  Empty nodes (EmptyState) hold nothing; a ``count`` field
+# (adam's, or a schedule's) is the update count, which without one is
+# the step.
+OPTAX_SLOTS = {
+    "sgd": {},
+    "momentum": {"0/trace": "trace"},
+    "rmsprop": {"0/nu": "nu", "2/trace": "trace"},
+    "adadelta": {"1/e_g": "e_g", "1/e_x": "e_x"},
+    "adagrad": {"0/sum_of_squares": "sum_of_squares"},
+    "adam": {"0/mu": "mu", "0/nu": "nu"},
+}
 
 
 def flat_train_state(state, alg: str) -> Tuple[dict, dict]:
@@ -70,23 +95,29 @@ def is_orbax(path: str) -> bool:
         os.path.exists(os.path.join(path, m)) for m in _ORBAX_MARKERS)
 
 
-def list_steps(path: str):
-    """The complete step directories under ``path``, in order."""
+def _is_step(path: str, orbax_steps: bool) -> bool:
+    return os.path.exists(os.path.join(path, TRAIN_STATE)) or (
+        orbax_steps and orbax.is_checkpoint(os.path.join(path, "default")))
+
+
+def list_steps(path: str, orbax_steps: bool = False):
+    """The complete step directories under ``path``, in order: the port's
+    own, and with ``orbax_steps`` the JAX package's Orbax steps too."""
     if not os.path.isdir(path):
         return []
     return sorted(int(d) for d in os.listdir(path) if d.isdigit()
-                  and os.path.exists(os.path.join(path, d, TRAIN_STATE)))
+                  and _is_step(os.path.join(path, d), orbax_steps))
 
 
 def resolve(path: str) -> str:
     """A step directory from a user's path: the directory itself, or the
-    latest step under a ``<checkpoint_dir>`` or ``<checkpoint_dir>/<name>``
-    root with a single model."""
+    latest step (of either form) under a ``<checkpoint_dir>`` or
+    ``<checkpoint_dir>/<name>`` root with a single model."""
     path = os.path.abspath(path)
     for _ in range(2):
         if os.path.exists(os.path.join(path, VARIABLES)) or is_orbax(path):
             return path
-        steps = list_steps(path)
+        steps = list_steps(path, orbax_steps=True)
         if steps:
             return os.path.join(path, str(steps[-1]))
         subs = [d for d in os.listdir(path)
@@ -110,26 +141,24 @@ def save_variables(directory: str, variables: Dict[str, np.ndarray]) -> str:
     return final
 
 
-def _archives(path: str) -> Tuple[str, Optional[str]]:
-    """(the ``.npz`` of a checkpoint's variables, its ``train_state.npz``
-    or None) for a flat ``.npz``, a variables directory, a step directory
-    or a run root (``resolve``).  An Orbax directory of the JAX package is
-    refused: export it as a flat ``.npz`` with the JAX package's
-    ``tools/ckpt_npz.py pack`` first."""
+def _locate(path: str) -> Tuple[Optional[str], Optional[str], Optional[str]]:
+    """(the Orbax tree directory, or None; the ``.npz`` of the
+    variables and the ``train_state.npz``, or None) of a checkpoint in
+    any form: a flat ``.npz``, a variables directory, a step directory
+    or a run root (``resolve``), of the port or of the JAX package's
+    Orbax (whose step directories nest the tree under ``default/``)."""
     if path.endswith(".npz") and os.path.isfile(path):
-        return path, None
+        return None, path, None
     step_dir = resolve(path)
     if is_orbax(step_dir):
-        raise ValueError(
-            f"{path} is an Orbax checkpoint of the JAX package, which "
-            "nhans_tpu_torch cannot read; export its variables on a "
-            f"machine with JAX with `python tools/ckpt_npz.py pack {path} "
-            "<out.npz>` and pass the .npz")
+        nested = os.path.join(step_dir, "default")
+        return (nested if orbax.is_checkpoint(nested) else step_dir,
+                None, None)
     variables = os.path.join(step_dir, VARIABLES)
     if not os.path.exists(variables):
         raise FileNotFoundError(f"no checkpoint at {path}")
     state = os.path.join(step_dir, TRAIN_STATE)
-    return variables, (state if os.path.exists(state) else None)
+    return None, variables, (state if os.path.exists(state) else None)
 
 
 def _read(npz: str) -> Dict[str, np.ndarray]:
@@ -137,27 +166,85 @@ def _read(npz: str) -> Dict[str, np.ndarray]:
         return {k: z[k] for k in z.files}
 
 
-def load(path: str) -> Tuple[dict, Optional[dict]]:
+def _read_orbax_variables(tree: str, flat=None) -> Dict[str, np.ndarray]:
+    """The float32 ``params/...`` and ``batch_stats/...`` of an Orbax
+    tree (read from ``tree`` unless its arrays ``flat`` are given)."""
+    if flat is None:
+        flat = orbax.read(tree, keep=("params", "batch_stats"))
+    return {k: v.astype(np.float32, copy=False) for k, v in flat.items()
+            if k.split("/", 1)[0] in ("params", "batch_stats")}
+
+
+def _train_state_from_optax(flat: Dict[str, np.ndarray], alg: str,
+                           where: str = "checkpoint") -> dict:
+    """The flat ``train_state`` dict (``step``, ``alg``, ``opt/count``,
+    ``opt/<slot>/<flax path>``) of an Orbax train state's arrays
+    ``flat``, its optax tree mapped by ``OPTAX_SLOTS[alg]``; a field the
+    mapping lacks raises ``ValueError`` naming it and ``alg``."""
+    alg = alg.lower()
+    if alg not in OPTAX_SLOTS:
+        raise ValueError(f"unknown optimizer --alg={alg!r}")
+    slots = OPTAX_SLOTS[alg]
+    extra = {"step": np.int64(flat["step"]), "alg": np.array(alg)}
+    counts = set()
+    for key, value in flat.items():
+        if not key.startswith("opt_state/"):
+            continue
+        index, _, rest = key[len("opt_state/"):].partition("/")
+        if rest == "count":
+            counts.add(int(value))
+            continue
+        field, _, param = rest.partition("/")
+        slot = slots.get(f"{index}/{field}")
+        if slot is None:
+            raise ValueError(
+                f"{where}: its optimizer state opt_state/{index}/{field} "
+                f"does not fit --alg {alg}, whose optax state holds "
+                f"{sorted(slots) or 'no arrays'}")
+        extra[f"opt/{slot}/{param}"] = value
+    if len(counts) > 1:
+        raise ValueError(f"{where}: its update counts {sorted(counts)} "
+                         "disagree")
+    extra["opt/count"] = np.int64(counts.pop() if counts else extra["step"])
+    return extra
+
+
+def load(path: str, alg: Optional[str] = None
+         ) -> Tuple[dict, Optional[dict]]:
     """(variables, train_state or None) of a checkpoint in any form
-    ``_archives`` takes; a flat ``.npz`` holds inference variables
-    only."""
-    variables, state = _archives(path)
-    return _read(variables), (_read(state) if state else None)
+    ``_locate`` takes; a flat ``.npz`` and a variables directory hold
+    inference variables only.  An Orbax train state records no
+    optimizer, so its optax tree is mapped for ``alg`` (required
+    there)."""
+    tree, variables, state = _locate(path)
+    if tree is None:
+        return _read(variables), (_read(state) if state else None)
+    if not {"opt_state", "step"} <= orbax.top_level_keys(tree):
+        return _read_orbax_variables(tree), None
+    if alg is None:
+        raise ValueError(f"{path} is an Orbax train state, which records "
+                         "no optimizer: pass the run's --alg")
+    flat = orbax.read(tree)
+    return (_read_orbax_variables(tree, flat),
+            _train_state_from_optax(flat, alg, tree))
 
 
 def load_variables(path: str) -> Dict[str, np.ndarray]:
     """The flat inference variables (``params/...``, ``batch_stats/...``)
     of a checkpoint in any form ``load`` takes, without its train
     state."""
-    return _read(_archives(path)[0])
+    tree, variables, _ = _locate(path)
+    return _read(variables) if tree is None else _read_orbax_variables(tree)
 
 
 def checkpoint_keys(path: str) -> frozenset:
     """The top-level keys of a checkpoint (any form ``load`` takes), read
-    from the archives' directories without loading an array: a full train
-    state carries ``opt_state`` and ``step``, inference variables only
-    ``params`` and ``batch_stats``."""
-    variables, state = _archives(path)
+    without loading an array (an Orbax tree's from its ``_METADATA``): a
+    full train state carries ``opt_state`` and ``step``, inference
+    variables only ``params`` and ``batch_stats``."""
+    tree, variables, state = _locate(path)
+    if tree is not None:
+        return orbax.top_level_keys(tree)
     with np.load(variables) as z:
         keys = {k.split("/", 1)[0] for k in z.files}
     return frozenset(keys | ({"opt_state", "step"} if state else set()))

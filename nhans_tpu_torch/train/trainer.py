@@ -5,8 +5,10 @@
   run resumed from a checkpoint replays an uninterrupted one.
 * Auto-resume: when ``checkpoint_dir`` already holds steps, training
   continues from the latest; ``--restore_path`` takes a step directory
-  (full state) or a flat ``.npz`` (variables only: fresh optimizer,
-  step 0).
+  or run root (full state), or a variables directory or a flat ``.npz``
+  (variables only: fresh optimizer, step 0), of the port or of the JAX
+  package's Orbax (``train/checkpoint.py``; its optax state mapped for
+  this run's ``--alg``).
 * Loss and gradient norm stay on the device until a monitor boundary.
   On a card each step is also timed by a pair of CUDA events, from
   before its batch is fetched to after its last kernel, so by the
@@ -137,7 +139,7 @@ class Trainer:
         t = self.cfg.train
         if t.restore_path:
             self._say(f"Restoring model from {t.restore_path}")
-            variables, extra = ckpt.load(t.restore_path)
+            variables, extra = ckpt.load(t.restore_path, alg=t.alg)
             ckpt.load_into(self.model, variables)
             if extra is not None:
                 self._load_train_state(extra)
@@ -160,6 +162,11 @@ class Trainer:
             raise ValueError(f"checkpoint was trained with --alg {alg}, "
                              f"this run asks for {self.cfg.train.alg}")
         opt = ckpt.opt_state_from_flat(extra, self.device)
+        if set(opt) != set(self.state.opt_state):
+            raise ValueError(
+                f"the checkpoint's optimizer slots {sorted(opt)} do not fit "
+                f"--alg {self.cfg.train.alg} (mom {self.cfg.train.mom}), "
+                f"whose slots are {sorted(self.state.opt_state)}")
         self.state.opt_state = {
             k: (v if k == "count" else cut_full(v, self.shards))
             for k, v in opt.items()}

@@ -8,6 +8,8 @@ them where JAX is not installed (the machine with the GPU).
     python tests/make_torch_golden.py dp       # a step over 2 data ranks
     python tests/make_torch_golden.py random_init  # serving a fresh init
     python tests/make_torch_golden.py flops    # FLOP counts, JAX and port
+    python tests/make_torch_golden.py orbax    # the Orbax fixtures
+    python tests/make_torch_golden.py orbax_read  # time a full-width read
 
 The first runs ``nhans_tpu``'s ``Enhancer(out_wire="float32")`` with the
 shipped ``docs/quality/denoiser_q5_swa.npz`` on a seeded 1.5 s input and
@@ -81,6 +83,7 @@ import glob
 import hashlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -419,22 +422,31 @@ def jax_train_golden(dtype: str = "float32", perturb: float = 0.0,
         step = step.lower(*args).compile(
             {"xla_allow_excess_precision": False})
     new, metrics = step(*args)
+    return {"seed": np.int64(TRAIN_SEED),
+            **jax_step_record(jcfg, batch, key, variables["params"], new,
+                              metrics)}
 
+
+def jax_step_record(jcfg, batch, key, before, new, metrics) -> dict:
+    """A training golden's keys of the JAX package's step from the params
+    ``before`` to the state ``new`` on ``batch`` with ``key``: the
+    inputs' digest, the loss, the gradient norm, the step's random
+    draws, the updates of ``TRAIN_LAYERS`` and the statistics of
+    ``TRAIN_STATS``."""
     def at(tree, path):
         for p in path.split("/"):
             tree = tree[p]
         return np.asarray(tree, np.float32)
 
-    out = {"seed": np.int64(TRAIN_SEED),
-           "input_sha256": np.array(input_digest(*batch.values())),
+    out = {"input_sha256": np.array(input_digest(*batch.values())),
            "loss": np.float32(metrics["loss"]),
            "grad_norm": np.float32(metrics["grad_norm"])}
     n = len(batch["clean"])
-    for k, v in jax_train_draws(jcfg, key, n, TRAIN_SLICES).items():
+    for k, v in jax_train_draws(jcfg, key, n,
+                                jcfg.data.slices_per_step).items():
         out[f"draws/{k}"] = v
     for path in TRAIN_LAYERS:
-        out[f"delta/{path}"] = (at(new.params, path)
-                                - at(variables["params"], path))
+        out[f"delta/{path}"] = at(new.params, path) - at(before, path)
     for path in TRAIN_STATS:
         for name in ("pop_mean", "pop_variance"):
             out[f"stats/{path}/{name}"] = at(new.batch_stats,
@@ -477,9 +489,7 @@ def port_train_golden(device="cpu", golden=None, dtype="float32",
     from nhans_tpu_torch.config import Config
     from nhans_tpu_torch.models import build_model
     from nhans_tpu_torch.parallel.mesh import shard_batch
-    from nhans_tpu_torch.parallel.sharding_rules import (gather_full,
-                                                         model_shards,
-                                                         shard_model)
+    from nhans_tpu_torch.parallel.sharding_rules import shard_model
     from nhans_tpu_torch.train.step import (make_train_step, make_tx,
                                             state_of)
 
@@ -508,6 +518,17 @@ def port_train_golden(device="cpu", golden=None, dtype="float32",
     batch = {k: torch.from_numpy(v).to(device) for k, v in inputs.items()}
     metrics = make_train_step(cfg, model, tx, mesh=mesh)(state, batch, None,
                                                          draws=draws)
+    return port_step_record(model, before, metrics)
+
+
+def port_step_record(model, before, metrics) -> dict:
+    """A training golden's computed keys of the port's step that took
+    ``model`` from the flat params ``before`` (``to_flax``) and returned
+    ``metrics``."""
+    from nhans_tpu_torch.compat.weights import to_flax
+    from nhans_tpu_torch.parallel.sharding_rules import (gather_full,
+                                                         model_shards)
+
     after = to_flax(gather_full(dict(model.named_parameters()),
                                 model_shards(model)), "params")
     stats = to_flax(dict(model.named_buffers()), "stats")
@@ -520,6 +541,200 @@ def port_train_golden(device="cpu", golden=None, dtype="float32",
         for name in ("pop_mean", "pop_variance"):
             out[f"stats/{path}/{name}"] = stats[f"stats/{path}/{name}"]
     return out
+
+
+# The Orbax fixtures (tests/data/orbax/): a narrow model with the full-width
+# model's eight main and four context blocks, so its 571 variable names, 2 to
+# 4 channels wide.  A block with a stride changes its channel count, as every
+# one does at full width, or it would lose its shortcut convolution.
+ORBAX_DIR = os.path.join(REPO, "tests", "data", "orbax")
+ORBAX_SEED = 20270
+ORBAX_MODEL = dict(
+    embedding_dim=1, pos_embed_hidden=2,
+    main_blocks=((4, 1, 2), (4, 1, 2), (4, 2, 3), (4, 1, 3),
+                 (3, 2, 2), (3, 1, 2), (3, 2, 3), (3, 1, 3)),
+    context_blocks=(((8, 4), (3, 2), 2), ((8, 4), (3, 2), 3),
+                    ((4, 4), (1, 1), 4), ((4, 4), (1, 2), 1)))
+# the fixtures' training flags, as both packages' command lines take them
+ORBAX_FLAGS = ("--lr", "1e-3", "--lr_schedule", "cosine", "--lr_decay_steps",
+               "100", "--mom", "0.9", "--slices_per_step", str(TRAIN_SLICES))
+
+
+def orbax_paths(root: str = ORBAX_DIR) -> dict:
+    """The fixtures under ``root``: ``variables`` (a ``save_variables``
+    directory) and ``npz`` (its twin), ``run`` (a ``Checkpointer`` root,
+    step 1 of an Adam run) and ``golden`` (JAX's next step from it)."""
+    return {"variables": os.path.join(root, "variables"),
+            "npz": os.path.join(root, "variables.npz"),
+            "run": os.path.join(root, "run"),
+            "golden": os.path.join(root, "next_step.npz")}
+
+
+def narrow(cfg):
+    """``cfg`` with the Orbax fixtures' model widths."""
+    return cfg.replace(model=dataclasses.replace(cfg.model, **ORBAX_MODEL))
+
+
+def jax_orbax_config(alg: str):
+    """The JAX package's Config of the fixtures' run with ``--alg alg``:
+    its command line's reference flags, narrowed."""
+    import argparse
+
+    from nhans_tpu.config import add_reference_flags, config_from_args
+
+    p = argparse.ArgumentParser()
+    add_reference_flags(p, inference=False)
+    return narrow(config_from_args(p.parse_args(["--alg", alg,
+                                                 *ORBAX_FLAGS])))
+
+
+def jax_orbax_state(jcfg, variables=None, grads_seed=None):
+    """(model, TrainState at step 0, tx, nested variables) of the JAX
+    package for ``jcfg``, as its ``create_state`` makes them, from
+    ``variables`` or else from its init with every leaf moved by a seeded
+    draw (so that no leaf is all zeros or ones).  With ``grads_seed``, the
+    state after one optimizer update with seeded gradients instead."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from nhans_tpu.models import build_model, init_variables
+    from nhans_tpu.train.optim import make_optimizer, make_schedule
+    from nhans_tpu.train.step import TrainState
+
+    t = jcfg.train
+    tx = make_optimizer(t.alg, make_schedule(t.lr, t.lr_schedule,
+                                             t.lr_decay_steps,
+                                             t.lr_min_frac), t.mom)
+    if variables is None:
+        _, init = init_variables(jcfg, jax.random.PRNGKey(ORBAX_SEED),
+                                 train=True)
+        rng = np.random.default_rng(ORBAX_SEED)
+
+        def moved(path, x):
+            x = np.asarray(x, np.float32)
+            if jax.tree_util.keystr(path).endswith("['pop_variance']"):
+                return x * rng.uniform(0.9, 1.1, x.shape).astype(np.float32)
+            return x + (0.01 * rng.standard_normal(x.shape)).astype(
+                np.float32)
+
+        variables = jax.tree_util.tree_map_with_path(
+            moved, {"params": init["params"],
+                    "batch_stats": init["batch_stats"]})
+    state = TrainState(step=jnp.zeros((), jnp.int32),
+                       params=variables["params"],
+                       batch_stats=variables["batch_stats"],
+                       opt_state=tx.init(variables["params"]))
+    if grads_seed is not None:
+        g = np.random.default_rng(grads_seed)
+        grads = jax.tree_util.tree_map(
+            lambda x: (1e-2 * g.standard_normal(x.shape)).astype(np.float32),
+            state.params)
+        updates, opt = tx.update(grads, state.opt_state, state.params)
+        state = state.replace(step=jnp.ones((), jnp.int32),
+                              params=optax.apply_updates(state.params,
+                                                         updates),
+                              opt_state=opt)
+    return build_model(jcfg), state, tx, variables
+
+
+def jax_orbax_fixtures(root: str, alg: str = "adam",
+                       variables=None) -> dict:
+    """Write the Orbax fixtures under ``root`` with the JAX package's own
+    ``save_variables`` and ``Checkpointer`` (CPU): the variables of
+    ``jax_orbax_state`` (of ``variables`` if given) and their ``.npz``
+    twin, and the run root of one ``--alg`` step from them on
+    ``golden_train_inputs(ORBAX_SEED)``; returns (and writes) the golden
+    of the next step, on ``golden_train_inputs(ORBAX_SEED + 1)``."""
+    import jax
+    import jax.numpy as jnp
+
+    from nhans_tpu.train.checkpoint import Checkpointer, save_variables
+    from nhans_tpu.train.step import make_train_step
+
+    paths = orbax_paths(root)
+    jcfg = jax_orbax_config(alg)
+    model, state, tx, variables = jax_orbax_state(jcfg, variables)
+    # host arrays, as tools/ckpt_npz.py unpack and ckpt_average save them
+    save_variables(paths["variables"], variables)
+    np.savez_compressed(paths["npz"], **{
+        "/".join(str(getattr(k, "key", k)) for k in path): np.asarray(x)
+        for path, x in jax.tree_util.tree_flatten_with_path(variables)[0]})
+    step = make_train_step(jcfg, model, tx, donate=False)
+
+    def batch(seed):
+        raw = golden_train_inputs(seed)
+        return raw, {k: jnp.asarray(v) for k, v in raw.items()}
+
+    state, _ = step(state, batch(ORBAX_SEED)[1],
+                    jax.random.PRNGKey(ORBAX_SEED))
+    # as the trainer saves: a host snapshot at its step
+    ckpt = Checkpointer(paths["run"])
+    ckpt.save(int(state.step), jax.device_get(state))
+    ckpt.wait()
+    ckpt.close()
+    raw, dev = batch(ORBAX_SEED + 1)
+    key = jax.random.PRNGKey(ORBAX_SEED + 1)
+    new, metrics = step(state, dev, key)
+    golden = {"seed": np.int64(ORBAX_SEED + 1), "step": np.int64(state.step),
+              **jax_step_record(jcfg, raw, key, state.params, new, metrics)}
+    np.savez_compressed(paths["golden"], **golden)
+    return golden
+
+
+def orbax_read_times(repeats: int = 5) -> dict:
+    """The shipped denoiser weights written at full width by the JAX
+    package's ``save_variables`` (host arrays, a temporary directory) and
+    read by the port's ``load_variables``: the directory's bytes and each
+    read's wall seconds on this machine's CPU (the first is the first in
+    the process; the page cache is warm from the write)."""
+    from nhans_tpu.train.checkpoint import save_variables
+    from nhans_tpu_torch.train.checkpoint import load_variables
+
+    with tempfile.TemporaryDirectory() as tmp:
+        save_variables(os.path.join(tmp, "q5"), jax_variables(DENOISER_NPZ))
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(tmp) for f in fs)
+        seconds = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            n = len(load_variables(os.path.join(tmp, "q5")))
+            seconds.append(time.perf_counter() - t0)
+    return {"arrays": n, "bytes": size, "read_s": seconds}
+
+
+def port_orbax_trainer(run: str, alg: str, device, workdir: str):
+    """The port's Trainer of ``python -m nhans_tpu_torch.cli.train
+    --restore_path run --alg alg`` with the fixtures' flags, its model
+    narrowed (the command line has no width flags), writing under
+    ``workdir``."""
+    from nhans_tpu_torch.cli.train import parser
+    from nhans_tpu_torch.config import config_from_args
+    from nhans_tpu_torch.train.trainer import Trainer
+
+    args = parser().parse_args([
+        "--alg", alg, *ORBAX_FLAGS, "--restore_path", run,
+        "--device_corpus", "off", "--eval_utts", "0",
+        "--checkpoint_dir", os.path.join(workdir, "ck"),
+        "--summaries_dir", os.path.join(workdir, "sum")])
+    return Trainer(narrow(config_from_args(args)), eval_utts=0,
+                   device=device)
+
+
+def port_orbax_step(trainer, golden) -> dict:
+    """The port's next step from ``trainer`` (``port_orbax_trainer``) on
+    the golden's inputs and draws: the golden's computed keys."""
+    import torch
+
+    from nhans_tpu_torch.compat.weights import to_flax
+
+    before = to_flax(dict(trainer.model.named_parameters()), "params")
+    draws = {k[len("draws/"):]: torch.from_numpy(np.array(v))
+             for k, v in golden.items() if k.startswith("draws/")}
+    batch = {k: torch.from_numpy(v).to(trainer.device) for k, v in
+             golden_train_inputs(int(golden["seed"])).items()}
+    metrics = trainer.step_fn(trainer.state, batch, None, draws=draws)
+    return port_step_record(trainer.model, before, metrics)
 
 
 # the evaluation golden: one group of two utterances on a 2.5 s bucket
@@ -889,6 +1104,17 @@ def main() -> None:
         np.savez_compressed(GOLDEN_RANDOM_INIT, **jax_random_init_golden())
         print(f"wrote {GOLDEN_RANDOM_INIT} "
               f"({os.path.getsize(GOLDEN_RANDOM_INIT)} bytes)")
+        return
+    if sys.argv[1:] == ["orbax"]:
+        shutil.rmtree(ORBAX_DIR, ignore_errors=True)
+        os.makedirs(ORBAX_DIR)
+        jax_orbax_fixtures(ORBAX_DIR)
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(ORBAX_DIR) for f in fs)
+        print(f"wrote {ORBAX_DIR} ({size} bytes)")
+        return
+    if sys.argv[1:] == ["orbax_read"]:
+        print(json.dumps(orbax_read_times()))
         return
     if sys.argv[1:] == ["eval"]:
         np.savez_compressed(GOLDEN_EVAL, **jax_eval_golden())

@@ -19,7 +19,8 @@ Parity on the CPU, on seeded inputs:
   against ``jax.grad``; ``trunc_normal`` zero at std 0 and within two sigma;
 * ``add_reference_flags``: the same option strings, defaults, choices
   and arity as JAX's, apart from the port's ``--device``;
-* ``checkpoint_keys``/``load_variables`` on every checkpoint form.
+* ``checkpoint_keys``/``load_variables`` on every checkpoint form, the
+  JAX package's Orbax forms too.
 """
 
 import ast
@@ -45,9 +46,10 @@ from nhans_tpu_torch.cli._app import load_weights
 from nhans_tpu_torch.config import Config
 from nhans_tpu_torch.train import checkpoint as ckpt
 from nhans_tpu_torch.utils import native
-from tests.make_torch_golden import DENOISER_NPZ
+from tests.make_torch_golden import DENOISER_NPZ, orbax_paths
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ORBAX = orbax_paths()
 
 _DISPATCH = ("selects XLA or the Pallas kernel; the port dispatches by the "
              "tensor's device (ops/stft_cuda.py::log_spectrogram_kernel)")
@@ -337,11 +339,31 @@ def test_checkpoint_keys_and_load_variables_on_every_form(tmp_path):
         state = load_weights(cfg, form)
         assert all(torch.equal(state[k], v) for k, v in
                    ckpt.from_flax(variables).items()), form
+    # the JAX package's Orbax forms (tests/data/orbax, written by its own
+    # save_variables and Checkpointer): a variables directory against its
+    # .npz twin, and a run root, its <ckdir>/nhans and its step directory
+    with np.load(ORBAX["npz"]) as z:
+        twin = {k: z[k] for k in z.files}
+    run = ORBAX["run"]
+    step_vars = ckpt.load_variables(os.path.join(run, "nhans", "1"))
+    assert sorted(step_vars) == sorted(twin)
+    for form, want in ((ORBAX["variables"], twin), (run, step_vars),
+                       (os.path.join(run, "nhans"), step_vars)):
+        full = form != ORBAX["variables"]
+        assert ckpt.checkpoint_keys(form) == frozenset(
+            {"params", "batch_stats"}
+            | ({"opt_state", "step"} if full else set())), form
+        variables = ckpt.load_variables(form)
+        assert sorted(variables) == sorted(want), form
+        assert all(variables[k].dtype == np.float32
+                   and np.array_equal(variables[k], v)
+                   for k, v in want.items()), form
+    # a directory Orbax marks as its own without the tree's _METADATA
     orbax = tmp_path / "orbax"
     orbax.mkdir()
     (orbax / "_CHECKPOINT_METADATA").write_text("{}")
     for fn in (ckpt.checkpoint_keys, ckpt.load_variables):
-        with pytest.raises(ValueError, match="tools/ckpt_npz.py pack"):
+        with pytest.raises(ValueError, match="no _METADATA"):
             fn(str(orbax))
         with pytest.raises(FileNotFoundError):
             fn(str(tmp_path / "absent"))

@@ -1,6 +1,7 @@
 """The port stands alone: every module of nhans_tpu_torch imports with JAX,
-flax and nhans_tpu blocked, no source of it (nor chip_smoke.py) names
-them, and chip_smoke.py refuses to run without a card."""
+flax, orbax, tensorstore and nhans_tpu blocked, no source of it (nor
+chip_smoke.py) names them, and chip_smoke.py refuses to run without a
+card."""
 
 import glob
 import os
@@ -16,11 +17,12 @@ PORT_SOURCES = sorted(
     glob.glob(os.path.join(REPO, "nhans_tpu_torch", "**", "*.py"),
               recursive=True)) + ["chip_smoke.py"]
 _FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|flax|nhans_tpu)(?:\.|\s|$)", re.M)
+    r"^\s*(?:import|from)\s+(?:jax|flax|orbax|tensorstore|nhans_tpu)"
+    r"(?:\.|\s|$)", re.M)
 
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "nhans_tpu"):
+for name in ("jax", "jaxlib", "flax", "orbax", "tensorstore", "nhans_tpu"):
     sys.modules[name] = None
 import nhans_tpu_torch
 names = sorted(m.name for m in pkgutil.walk_packages(
@@ -38,8 +40,8 @@ def test_every_module_imports_with_jax_blocked():
     # config, version, bench, 12 subpackages,
     # dsp/{spectral,mixing,windowing},
     # ops/{_build,stft_cuda}, nn/{blocks,model},
-    # compat/{weights,tf_bundle,tf_import}, infer/enhance,
-    # utils/{device,wavio,tb_events,watchdog,scoring,pesq_np,native},
+    # compat/{weights,tf_bundle,tf_import,orbax}, infer/enhance,
+    # utils/{device,wavio,tb_events,watchdog,scoring,pesq_np,native,zstd},
     # cli/{_app,denoiser,separator,train,seeds,evaluate,load_model,
     #      load_denoiser,load_separator},
     # data/{manifest,banks,loader,pipeline},
@@ -47,12 +49,12 @@ def test_every_module_imports_with_jax_blocked():
     # tools/{devtime,profile_serving,profile_training,spectrogram_anatomy,
     #        eval_checkpoints,ckpt_npz,ckpt_average,validate_demo,
     #        train_supervisor}, parallel/{mesh,sharding_rules}
-    assert int(r.stdout.strip()) == 63
+    assert int(r.stdout.strip()) == 65
 
 
 _RUN_BLOCKED = r"""
 import runpy, sys
-for name in ("jax", "jaxlib", "flax", "nhans_tpu"):
+for name in ("jax", "jaxlib", "flax", "orbax", "tensorstore", "nhans_tpu"):
     sys.modules[name] = None
 module = sys.argv[1]
 sys.argv = [module, *sys.argv[2:]]

@@ -143,14 +143,46 @@ def test_checkpoint_forms_give_the_same_weights(tmp_path):
 
 
 def test_orbax_directory_is_refused_with_the_pack_route(tmp_path):
-    orbax = tmp_path / "orbax_ckpt"
-    orbax.mkdir()
-    (orbax / "_CHECKPOINT_METADATA").write_text("{}")
-    r = _module("nhans_tpu_torch.cli.denoiser", "--device", "cpu",
-                "--checkpoint", str(orbax))
-    assert r.returncode != 0
-    assert "Traceback" not in r.stderr
-    assert f"python tools/ckpt_npz.py pack {orbax} <out.npz>" in r.stderr
+    """An Orbax directory of the JAX package was refused with its
+    ``tools/ckpt_npz.py pack`` route; now the serving command line serves
+    it.  The run root of a JAX ``Checkpointer`` holding the shipped weights
+    in an sgd train state (as the JAX trainer saves) serves the same wavs
+    as the ``.npz``, without the pack route's message."""
+    import jax.numpy as jnp
+
+    from nhans_tpu.train.checkpoint import Checkpointer
+    from nhans_tpu.train.optim import make_optimizer
+    from nhans_tpu.train.step import TrainState
+    from tests.make_torch_golden import jax_variables
+
+    variables = jax_variables(DENOISER_NPZ)
+    ck = Checkpointer(str(tmp_path / "ck"))
+    ck.save(7, TrainState(
+        step=jnp.int32(7), params=variables["params"],
+        batch_stats=variables["batch_stats"],
+        opt_state=make_optimizer("sgd", 1e-3).init(variables["params"])))
+    ck.wait()
+    ck.close()
+    mixed, _, neg = _wavs(tmp_path)
+    procs = {}
+    for tag, checkpoint in (("orbax", str(tmp_path / "ck")),
+                            ("npz", DENOISER_NPZ)):
+        (tmp_path / tag).mkdir()
+        procs[tag] = subprocess.Popen(
+            [sys.executable, "-m", "nhans_tpu_torch.cli.denoiser", "--device",
+             "cpu", "--checkpoint", checkpoint, "--input", mixed, "--neg", neg,
+             "--pos", "", "--output", str(tmp_path / tag / "out.wav")],
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+    for tag, proc in procs.items():
+        _, err = proc.communicate(timeout=600)
+        assert proc.returncode == 0, err
+        assert "ckpt_npz.py pack" not in err
+    names = sorted(os.listdir(tmp_path / "npz"))
+    assert len(names) == 4 and sorted(os.listdir(tmp_path / "orbax")) == names
+    for name in names:
+        assert np.array_equal(_read(str(tmp_path / "orbax" / name)),
+                              _read(str(tmp_path / "npz" / name))), name
 
 
 def _wavs(tmp_path):
