@@ -74,7 +74,13 @@ drives the port's two main paths at full width:
   fixtures (tests/data/orbax) read by the port's own OCDBT/zarr reader,
   served from the variables directory against its ``.npz`` twin, and the
   next step after ``cli.train --restore_path <Adam run root>`` against the
-  JAX package's next step, with the time of each read.
+  JAX package's next step, with the time of each read;
+* the port's own Orbax checkpoints at full width (phase 20):
+  ``cli.train --alg adam --lr_schedule cosine`` saving an Orbax step (its
+  write time, bytes and first read, every array read back bit for bit),
+  a fresh trainer auto-resuming it against the uninterrupted run's next
+  step, and the serving command line on the step directory against the
+  same weights from a ``.npz``.
 
 Any failed check raises, and the script exits non-zero without its result
 line.  Without a CUDA card, or without the rest of the repository, it
@@ -860,7 +866,7 @@ def phase16(tmp, corpus, smi, banked_losses, p7, phase5):
     from nhans_tpu_torch.cli import evaluate as cli_evaluate
     from nhans_tpu_torch.ops import stft_cuda
     from nhans_tpu_torch.tools import ckpt_average, ckpt_npz, validate_demo
-    from nhans_tpu_torch.train.checkpoint import load
+    from nhans_tpu_torch.train.checkpoint import load, load_variables
     from tests.make_torch_golden import (DENOISER_NPZ, GOLDEN_RANDOM_INIT,
                                          SEPARATOR_NPZ, input_digest,
                                          random_init_inputs, write_demo_tree,
@@ -959,7 +965,7 @@ def phase16(tmp, corpus, smi, banked_losses, p7, phase5):
 
     # (c) checkpoint tools on phase 9's step directories
     run_root = os.path.join(tmp, "ck_banked", "nhans")
-    steps = [load(os.path.join(run_root, str(s)))[0] for s in (4, 8)]
+    steps = [load_variables(os.path.join(run_root, str(s))) for s in (4, 8)]
     avg_dir = os.path.join(root, "avg")
     in_process(ckpt_average.main, ["--checkpoint_root", run_root, "--steps",
                                    "4,8", "--out", avg_dir])
@@ -1468,6 +1474,195 @@ def phase19(tmp, smi, p7):
     return {"serve_launches": serve_launches, "serve_shapes": serve_shapes,
             "step_launches": step_launches, "step_shapes": step_shapes,
             "reads": reads}
+
+
+def phase20(tmp, corpus, smi, p7):
+    """Phase 20: the port writes the JAX package's Orbax checkpoints at
+    full width (compat/orbax.py; the JAX package reads them in the CPU
+    tests, tests/test_torch_orbax_write.py).
+
+    (a) ``cli.train``'s Trainer at full width on phase 9's corpus with
+        ``--alg adam --lr_schedule cosine --lr_decay_steps 100 --batches
+        3 --eval_every 2``: it takes 2 steps and saves step 2 through
+        ``save_and_eval`` (the write's wall time and the directory's
+        bytes), then takes its third step, the uninterrupted run's, and
+        saves it.  Every array read back from step 2 equals the state in
+        memory at the save bit for bit, dtypes too (int32 step and
+        counts, float32 arrays); 4 kernel launches a step at [16, 163600].
+    (b) The first full-width read of step 2 in this process: its
+        variables (``load_variables``), its train state (``load``) and
+        its raw tree (``compat/orbax.read``), by wall time, the page
+        cache warm from the write.
+    (c) A fresh Trainer on that run root (step 3 taken out) auto-resumes
+        at step 2 with update count 2, its state the saved one exactly,
+        and its step 3 lies within phase 8's resume bars of the
+        uninterrupted run's: loss 1e-4 relative, each update within 1e-4
+        of its largest |delta| (the noise biases aside, as in phase 12).
+        Both runs use cuDNN's deterministic algorithms, so the bars
+        measure the checkpoint and not cuDNN's order of summation.
+    (d) The serving command line in this process with ``--checkpoint <step
+        2's directory>`` on phase 7's input: the same wavs as the same
+        weights from a flat ``.npz`` (0 max |diff|), 2 kernel launches.
+    Returns the launches and kernel input shapes of (a) + (c) and (d)."""
+    import torch
+
+    from nhans_tpu_torch.cli import train as cli_train
+    from nhans_tpu_torch.compat import orbax
+    from nhans_tpu_torch.ops import stft_cuda
+    from nhans_tpu_torch.train import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "p20")
+    flags = ["--speech_wav_dir", corpus[0], "--noise_wav_dir", corpus[1],
+             "--checkpoint_dir", os.path.join(root, "ck"), "--eval_utts",
+             "0", "--train_monitor_every", "1", "--alg", "adam",
+             "--lr_schedule", "cosine", "--lr_decay_steps", "100",
+             "--batches", "3", "--eval_every", "2"]
+
+    def trained(name, trainer):
+        """Train ``trainer`` with the counts at 0: (its launches, kernel
+        input shapes, losses by step, its state after as flat arrays)."""
+        torch.cuda.synchronize()
+        stft_cuda.log_spectrogram_kernel.launches = 0
+        first = trainer.tstep
+        with kernel_shapes(stft_cuda) as shapes:
+            trainer.train()
+        torch.cuda.synchronize()
+        launches = stft_cuda.log_spectrogram_kernel.launches
+        check(launches == 4 * (trainer.tstep - first),
+              f"{name}: {launches} launches in {trainer.tstep - first} steps")
+        check(sorted(set(shapes)) == [((16, 163600), False)],
+              f"{name}: kernel shapes {sorted(set(shapes))}")
+        with open(os.path.join(root, f"sum_{name}", "nhans.jsonl")) as f:
+            losses = {r["step"]: r["loss"] for r in map(json.loads, f)
+                      if "loss" in r}
+        return launches, shapes, losses, ckpt.orbax_train_state(
+            trainer._full_state(), trainer.ckpt.chain)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        # (a) the uninterrupted run, its save at step 2 timed
+        run = cli_train.build_trainer(
+            [*flags, "--summaries_dir", os.path.join(root, "sum_run")])
+        saves, save = {}, run.ckpt.save
+
+        def timed_save(step, state):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = save(step, state)
+            seconds = time.perf_counter() - t0
+            saves[step] = (path, seconds,
+                           ckpt.orbax_train_state(state, run.ckpt.chain))
+            return path
+
+        run.ckpt.save = timed_save
+        launches_a, shapes_a, losses_a, after_a = trained("run", run)
+        check(sorted(saves) == [2, 3], f"saves at steps {sorted(saves)}")
+        step_dir, write_s, snap = saves[2]
+        nbytes = sum(os.path.getsize(os.path.join(d, f))
+                     for d, _, fs in os.walk(step_dir) for f in fs)
+        want = {k: v for k, v in snap.items() if v is not None}
+
+        # (b) the first reads, and the arrays against the state saved
+        t0 = time.perf_counter()
+        variables = ckpt.load_variables(step_dir)
+        read_vars = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, extra = ckpt.load(step_dir, alg="adam")
+        read_state = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        raw = orbax.read(os.path.join(step_dir, "default"))
+        read_raw = time.perf_counter() - t0
+        check(sorted(raw) == sorted(want), "Orbax step 2: its arrays")
+        bad = [k for k, v in want.items() if raw[k].dtype != v.dtype
+               or not np.array_equal(raw[k], v)]
+        check(not bad, f"Orbax step 2 differs from the saved state: "
+              f"{bad[:8]}")
+        check(all(np.array_equal(variables[k], want[k]) for k in variables)
+              and sorted(variables) == sorted(
+                  k for k in want if k.split("/")[0] in ("params",
+                                                         "batch_stats")),
+              "Orbax step 2: load_variables")
+        check(int(extra["step"]) == int(extra["opt/count"]) == 2,
+              "Orbax step 2: load's step and count")
+        say(f"[20a write] cli.train --alg adam --lr_schedule cosine, full "
+            f"width: losses " + ", ".join(f"{losses_a[k]:.6f}"
+                                          for k in sorted(losses_a))
+            + f"; step 2 written in {write_s:.3f} s ({nbytes} bytes, "
+            f"{len(want)} arrays, {len(snap) - len(want)} empty nodes); "
+            f"every array read back bit for bit; {launches_a} kernel "
+            f"launches in 3 steps on {smi}")
+        say(f"[20b read] first full-width read of step 2: variables "
+            f"{read_vars:.3f} s ({len(variables)} arrays), train state "
+            f"{read_state:.3f} s, raw tree {read_raw:.3f} s ({len(raw)} "
+            f"arrays; page cache warm from the write) on {smi}")
+
+        # (c) a fresh trainer on that run root, step 3 taken out
+        shutil.rmtree(os.path.join(run.ckpt.path, "3"))
+        del run
+        resumed = cli_train.build_trainer(
+            [*flags, "--summaries_dir", os.path.join(root, "sum_resumed")])
+        check(resumed.tstep == 2
+              and int(resumed.state.opt_state["count"]) == 2,
+              f"auto-resumed at step {resumed.tstep}, count "
+              f"{resumed.state.opt_state['count']}")
+        state2 = ckpt.orbax_train_state(resumed._full_state(),
+                                        resumed.ckpt.chain)
+        check(all(np.array_equal(state2[k], v) for k, v in want.items()),
+              "the resumed state is not the saved one")
+        launches_c, shapes_c, losses_c, after_c = trained("resumed",
+                                                          resumed)
+        del resumed
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    rel = abs(losses_c[3] - losses_a[3]) / abs(losses_a[3])
+    check(sorted(losses_c) == [3] and rel <= RESUME_RTOL,
+          f"resumed step 3: loss {losses_c} against {losses_a[3]}")
+    noise = tuple(n.replace(".", "/") for n in NOISE_BIASES)
+    upd = {}
+    for k, v in after_a.items():
+        if not k.startswith("params/"):
+            continue
+        delta = np.abs(v - snap[k]).max()
+        upd[k] = float(np.abs(after_c[k] - v).max() / max(delta, 1e-30))
+    worst = max((k for k in upd if not k.endswith(noise)), key=upd.get)
+    check(upd[worst] <= RESUME_RTOL, f"resumed step 3: update {worst} "
+          f"{upd[worst]}")
+    stats = max(float(np.abs(after_c[k] - v).max())
+                for k, v in after_a.items() if k.startswith("batch_stats/"))
+    say(f"[20c resume] auto-resumed at step 2 (count 2, state exact); step 3 "
+        f"loss {losses_c[3]:.7f} against {losses_a[3]:.7f} uninterrupted "
+        f"(rel {rel:.2g}); worst update max |diff| / max |delta| "
+        f"{upd[worst]:.2g} ({worst}), noise biases "
+        f"{max(v for k, v in upd.items() if k.endswith(noise)):.2g}; "
+        f"statistics max |diff| {stats:.2g}; {launches_c} kernel launches")
+
+    # (d) serving step 2's directory and the same weights from a .npz
+    npz = os.path.join(root, "step2.npz")
+    np.savez(npz, **variables)
+    wavs = (p7["in"], None, p7["neg"])
+    got, _, _, serve_launches, serve_shapes = served_wavs(
+        os.path.join(root, "orbax"), "denoiser", step_dir, stft_cuda, wavs)
+    twin, _, _, _, _ = served_wavs(os.path.join(root, "npz"), "denoiser",
+                                   npz, stft_cuda, wavs)
+    check(serve_launches == 2, f"Orbax step serving: {serve_launches} "
+          "launches")
+    check(sorted(got) == sorted(twin), "Orbax step serving: output files")
+    errs = {tag: float(np.abs(got[tag] - twin[tag]).max()) for tag in twin}
+    check(max(errs.values()) == 0.0, f"Orbax step serving against the .npz: "
+          f"{errs}")
+    say(f"[20d serve] cli.denoiser --checkpoint <step 2> on phase 7's input: "
+        f"{serve_launches} kernel launches ({serve_shapes}); max |diff| from "
+        "the same weights as .npz " + ", ".join(
+            f"out{tag} {v:.3g}" for tag, v in errs.items()))
+    wall = time.perf_counter() - t_phase
+    say(f"[20] phase 20 wall time {wall:.1f} s on {smi}")
+    return {"train_launches": launches_a + launches_c,
+            "train_shapes": shapes_a + shapes_c,
+            "serve_launches": serve_launches, "serve_shapes": serve_shapes,
+            "write_s": write_s, "bytes": nbytes, "read_vars_s": read_vars,
+            "read_state_s": read_state}
 
 
 def timed_groups(evaluator):
@@ -2480,6 +2675,9 @@ def main() -> int:
 
         # -- 19. the JAX package's Orbax checkpoints ------------------------------
         p19 = phase19(tmp, smi, p7)
+
+        # -- 20. the port's Orbax checkpoints at full width ---------------------
+        p20 = phase20(tmp, corpus, smi, p7)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2516,7 +2714,11 @@ def main() -> int:
             ("serving, Orbax checkpoint", (1, 52000, True),
              p19["serve_launches"], [(2, 32240), (1, 52000)]),
             ("training, resumed from Orbax", (1, 42000, False),
-             p19["step_launches"], [(1, 42000)])):
+             p19["step_launches"], [(1, 42000)]),
+            ("training, Orbax write and resume", (16, 163600, False),
+             p20["train_launches"], [(16, 163600)]),
+            ("serving, Orbax step directory", (1, 52000, True),
+             p20["serve_launches"], [(2, 32240), (1, 52000)])):
         t = timings[key]
         kernels.append({
             "name": f"log_spectrogram ({path})",
@@ -2596,6 +2798,21 @@ def main() -> int:
                 "--restore_path tests/data/orbax/run --alg adam (phase 19 "
                 "(b)), one utterance x 2 crops; times: phase 4 at the same "
                 "shape")
+        if path == "training, Orbax write and resume":
+            kernels[-1]["note"] = (
+                "launches: cli.train --alg adam --lr_schedule cosine at full "
+                "width, 3 steps saving Orbax steps 2 and 3, then a fresh "
+                "Trainer auto-resumed at step 2 taking step 3 (phase 20 (a), "
+                "(c)); times: phase 4 at the same shape")
+        if path == "serving, Orbax step directory":
+            check(sorted(set(p20["serve_shapes"])) == [((1, 52000), True),
+                                                       ((2, 32240), False)],
+                  f"Orbax step serving shapes {p20['serve_shapes']}")
+            kernels[-1]["note"] = (
+                "launches: cli.denoiser --checkpoint on the Orbax step "
+                "directory the port's trainer wrote at full width (phase 20 "
+                "(d)), contexts [2, 32240] and mixed [1, 52000]; times: "
+                "phase 4 at the mixed shape")
         if path == "training, bfloat16":
             kernels[-1]["note"] = (
                 "launches: the 21 steps of cli.train --dtype bfloat16 "

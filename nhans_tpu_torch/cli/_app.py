@@ -8,9 +8,9 @@
 
 ``--checkpoint`` takes a flat ``.npz``, a variables directory
 (``load_denoiser``/``load_separator``, ``tools/ckpt_average``), a step
-directory of the port's trainer or its run root (the latest step), and
-the same three forms written by the JAX package as Orbax directories
-(``train/checkpoint.py``).  Without ``--checkpoint`` it serves a seeded random
+directory of a trainer or its run root (the latest step): the Orbax
+directories both packages write, or the ``.npz`` forms of earlier
+versions of the port (``train/checkpoint.py``).  Without ``--checkpoint`` it serves a seeded random
 initialisation, with a WARNING on stderr: its residual is 0, so the
 output is the identity enhancement, as with the JAX CLI.
 

@@ -8,10 +8,10 @@ port, the port of ``nhans_tpu/cli/load_model.py``.
 With ``--tf_checkpoint`` it converts a published TF N-HANS checkpoint
 (``compat/tf_import.py``); without it it writes the seeded random
 initialisation of the serving CLIs, with a WARNING on stderr.  The output
-is a variables directory (``<output>/variables.npz``,
-``train/checkpoint.py::save_variables``) where the JAX command writes an
-Orbax directory; every ``--checkpoint`` of the port takes it, and
-``train/checkpoint.py::load_into`` loads it on any mesh.
+is the Orbax variables directory the JAX command writes
+(``train/checkpoint.py::save_variables``): every ``--checkpoint`` of
+either package takes it, and ``train/checkpoint.py::load_into`` loads it
+on any mesh.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Reader of the Orbax checkpoints the JAX package writes
+"""Reader and writer of the Orbax checkpoints the JAX package writes
 (``nhans_tpu/train/checkpoint.py``: ``save_variables`` and the
 ``Checkpointer``'s ``<step>/default``), with numpy, the standard library
 and the system's zstd (``utils/zstd.py``): no orbax, tensorstore or JAX.
@@ -50,13 +50,25 @@ Whatever else a file holds (another magic, version, compression,
 manifest kind, zarr format, compressor, filter, order or dtype) is
 refused with an error that names the field, and a short or corrupt file
 with one that names the file.
+
+``write`` writes what Orbax 0.11 writes for a tree of host arrays, in
+the encoding above: ``_METADATA``, and one OCDBT store at the root (no
+per-process stores: one process writes it) whose single version's root
+is one B-tree leaf, with Orbax's configuration (values of up to 1024
+bytes inline, the rest in the one data file ``d/<id>``, which also holds
+the leaf).  Each array is one zarr v2 array as tensorstore writes it for
+Orbax: zstd level 1, a null fill value, and one chunk unless it holds
+more than 2 GiB (``chunk_shape``).  ``write_checkpoint_metadata`` writes
+the ``_CHECKPOINT_METADATA`` of a variables or a step directory.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import struct
+import time
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -73,6 +85,17 @@ _MISSING = (1 << 64) - 1  # the offset and length of an empty tree's root
 # step and counts, int64 where x64 is on
 _DTYPES = {"<f4": np.float32, "<f8": np.float64, "<i4": np.int32,
            "<i8": np.int64}
+# what Orbax writes: its OCDBT configuration, the level of its zarr
+# chunks, the size above which it cuts an array into several chunks (the
+# default target size of an OCDBT data file) and the handler it records
+MAX_INLINE_VALUE_BYTES = 1024
+MAX_DECODED_NODE_BYTES = 100_000_000
+VERSION_TREE_ARITY_LOG2 = 4
+ZARR_ZSTD_LEVEL = 1
+CHUNK_TARGET_BYTES = 1 << 31
+CHECKPOINT_METADATA = "_CHECKPOINT_METADATA"
+HANDLER = ("orbax.checkpoint._src.handlers.standard_checkpoint_handler."
+           "StandardCheckpointHandler")
 
 
 def _crc32c_table() -> List[int]:
@@ -479,3 +502,207 @@ def read(path: str, keep: Optional[Iterable[str]] = None
                 return f.read()
     return {"/".join(p): _zarr_array(".".join(p), get, path)
             for p in leaves}
+
+
+# -- the writer ---------------------------------------------------------------
+
+def _varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        if n:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def _varints(ns: Iterable[int]) -> bytes:
+    return b"".join(_varint(n) for n in ns)
+
+
+def _shared(a: bytes, b: bytes) -> int:
+    n = min(len(a), len(b))
+    i = 0
+    while i < n and a[i] == b[i]:
+        i += 1
+    return i
+
+
+def _prefixed(items: List[bytes]) -> Tuple[bytes, bytes]:
+    """The shared-prefix and suffix-length columns of ``items`` and
+    their suffix bytes."""
+    shared = [_shared(items[i - 1], items[i]) for i in range(1, len(items))]
+    cut = [0] + shared
+    return (_varints(shared) + _varints(len(x) - c for x, c in
+                                        zip(items, cut)),
+            b"".join(x[c:] for x, c in zip(items, cut)))
+
+
+def _file_table(paths: List[str]) -> bytes:
+    """A data-file table of paths relative to the store's root (each an
+    empty base path and its own path)."""
+    enc = [p.encode() for p in paths]
+    columns, suffixes = _prefixed(enc)
+    return (_varint(len(enc)) + columns + _varints([0] * len(enc))
+            + suffixes)
+
+
+def _encode(body: bytes, magic: int) -> bytes:
+    """An OCDBT file: header (version 0, zstd), body and CRC-32C."""
+    body = zstd.compress(body, 0)
+    size = _HEADER + len(body) + 4
+    data = (struct.pack(">I", magic) + struct.pack("<Q", size)
+            + _varint(0) + _varint(1) + body)
+    return data + struct.pack("<I", crc32c(data))
+
+
+def _leaf(items: List[Tuple[bytes, bytes]], data_file: str,
+          offsets: Dict[bytes, int]) -> bytes:
+    """The body of a B-tree leaf of the sorted ``items`` (key, value);
+    the values at ``offsets`` lie in ``data_file``, the others inline."""
+    keys = [k for k, _ in items]
+    columns, suffixes = _prefixed(keys)
+    indirect = [k for k in keys if k in offsets]
+    return (bytes([0]) + _file_table([data_file] if indirect else [])
+            + _varint(len(keys)) + columns + suffixes
+            + _varints(len(v) for _, v in items)
+            + _varints(int(k in offsets) for k in keys)
+            + _varints([0] * len(indirect))
+            + _varints(offsets[k] for k in indirect)
+            + b"".join(v for k, v in items if k not in offsets))
+
+
+def write_store(root: str, values: Dict[bytes, bytes]) -> None:
+    """An OCDBT store at ``root`` holding ``values`` (key -> bytes):
+    ``manifest.ocdbt`` and one data file ``d/<id>`` with the values too
+    large to sit inline and the B-tree's single leaf after them."""
+    items = sorted(values.items())
+    data_file = f"d/{os.urandom(16).hex()}"
+    offsets, blobs, pos = {}, [], 0
+    for key, value in items:
+        if len(value) > MAX_INLINE_VALUE_BYTES:
+            offsets[key] = pos
+            blobs.append(value)
+            pos += len(value)
+    leaf = _leaf(items, data_file, offsets)
+    if len(leaf) > MAX_DECODED_NODE_BYTES:
+        raise ValueError(f"{root}: {len(items)} keys make a B-tree leaf of "
+                         f"{len(leaf)} bytes, more than "
+                         f"{MAX_DECODED_NODE_BYTES}; the writer makes one "
+                         "leaf only")
+    node = _encode(leaf, NODE_MAGIC)
+    os.makedirs(os.path.join(root, "d"), exist_ok=True)
+    with open(os.path.join(root, data_file), "wb") as f:
+        f.writelines(blobs)
+        f.write(node)
+    manifest = (os.urandom(16) + _varint(0)
+                + _varint(MAX_INLINE_VALUE_BYTES)
+                + _varint(MAX_DECODED_NODE_BYTES)
+                + bytes([VERSION_TREE_ARITY_LOG2])
+                + _varint(1) + struct.pack("<i", 0)
+                # the version tree's leaf: generation 1, its root a leaf
+                + _file_table([data_file]) + _varint(1) + _varint(1)
+                + bytes([0]) + _varints([0, pos, len(node), len(items),
+                                          len(node), pos])
+                + struct.pack("<Q", time.time_ns()) + _varint(0))
+    with open(os.path.join(root, MANIFEST), "wb") as f:
+        f.write(_encode(manifest, MANIFEST_MAGIC))
+
+
+def chunk_shape(shape: Tuple[int, ...], itemsize: int,
+                target: int = CHUNK_TARGET_BYTES) -> Tuple[int, ...]:
+    """The zarr chunk shape Orbax gives an array of ``shape`` written by
+    one process: the shape itself (a zero extent as 1) where it holds at
+    most ``target`` bytes, else the largest extent of the chunk stepped
+    down through its divisors until a chunk does (orbax's
+    ``subchunking.choose_chunk_shape``)."""
+    if math.prod(shape) * itemsize <= target:
+        return tuple(max(1, d) for d in shape)
+    divisors = [[d for d in range(1, s + 1) if s % d == 0] for s in shape]
+    while math.prod(d[-1] for d in divisors) > target // itemsize:
+        largest = max(range(len(shape)), key=lambda i: (divisors[i][-1], -i))
+        if divisors[largest][-1] == 1:
+            break
+        divisors[largest].pop()
+    return tuple(d[-1] for d in divisors)
+
+
+def _zarray(arr: np.ndarray, chunks: Tuple[int, ...]) -> bytes:
+    """The ``.zarray`` tensorstore writes for Orbax: keys sorted, no
+    spaces."""
+    return json.dumps({
+        "chunks": list(chunks),
+        "compressor": {"id": "zstd", "level": ZARR_ZSTD_LEVEL},
+        "dimension_separator": ".", "dtype": arr.dtype.str,
+        "fill_value": None, "filters": None, "order": "C",
+        "shape": list(arr.shape), "zarr_format": 2},
+        sort_keys=True, separators=(",", ":")).encode()
+
+
+def _array_values(name: str, arr: np.ndarray) -> Dict[bytes, bytes]:
+    """The keys and values of one zarr v2 array: its ``.zarray`` and its
+    chunks, each zstd-compressed (edge chunks padded with zeros)."""
+    if arr.dtype.str not in _DTYPES:
+        raise ValueError(f"{name}: dtype {arr.dtype} is not one the JAX "
+                         f"package saves ({sorted(_DTYPES)})")
+    chunks = chunk_shape(arr.shape, arr.itemsize)
+    out = {f"{name}/.zarray".encode(): _zarray(arr, chunks)}
+    grid = [-(-s // c) for s, c in zip(arr.shape, chunks)]
+    for index in np.ndindex(*grid):
+        region = tuple(slice(i * c, (i + 1) * c)
+                       for i, c in zip(index, chunks))
+        block = arr[region]
+        if block.shape != chunks:
+            block = np.pad(block, [(0, c - b) for b, c in
+                                   zip(block.shape, chunks)])
+        key = ".".join(map(str, index)) if index else "0"
+        out[f"{name}/{key}".encode()] = zstd.compress(
+            np.ascontiguousarray(block).tobytes(), ZARR_ZSTD_LEVEL)
+    return out
+
+
+def write(path: str, flat: Dict[str, Optional[np.ndarray]],
+          sequences: Iterable[str] = ()) -> None:
+    """Write the tree ``flat`` as the Orbax checkpoint directory
+    ``path`` (made if need be; it should be empty): ``_METADATA`` and an
+    OCDBT store of one zarr array per leaf.  ``flat`` maps each leaf's
+    path, joined with ``/``, to a numpy array, or to None for an empty
+    node (an optax ``EmptyState``), in the order the tree flattens;
+    ``sequences`` names the nodes (joined paths) whose children are
+    sequence indices, recorded as ``key_type`` 1 (dict keys are 2)."""
+    sequences = set(sequences)
+    tree, values = {}, {}
+    for key, value in flat.items():
+        parts = key.split("/")
+        tree[str(tuple(parts))] = {
+            "key_metadata": [
+                {"key": p, "key_type": 1 if "/".join(parts[:i]) in sequences
+                 else 2} for i, p in enumerate(parts)],
+            "value_metadata": (
+                {"value_type": "None", "skip_deserialize": True}
+                if value is None else
+                {"value_type": "np.ndarray", "skip_deserialize": False})}
+        if value is not None:
+            values.update(_array_values(".".join(parts), np.asarray(value)))
+    os.makedirs(path, exist_ok=True)
+    write_store(path, values)
+    with open(os.path.join(path, METADATA), "w") as f:
+        json.dump({"tree_metadata": tree, "use_ocdbt": True,
+                   "use_zarr3": False,
+                   "store_array_data_equal_to_fill_value": True,
+                   "custom_metadata": None}, f)
+
+
+def write_checkpoint_metadata(path: str, step: bool,
+                              init_ns: int) -> None:
+    """``path``'s ``_CHECKPOINT_METADATA``: a ``save_variables``
+    directory's (``step`` False) or a ``Checkpointer`` step's, whose tree
+    lies under ``default/``; ``init_ns`` is when the save began."""
+    with open(os.path.join(path, CHECKPOINT_METADATA), "w") as f:
+        json.dump({"item_handlers": {"default": HANDLER} if step
+                   else HANDLER, "metrics": {}, "performance_metrics": {},
+                   "init_timestamp_nsecs": init_ns,
+                   "commit_timestamp_nsecs": time.time_ns(),
+                   "custom_metadata": {}}, f)

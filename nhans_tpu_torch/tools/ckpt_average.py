@@ -1,6 +1,6 @@
 """Average the inference variables of several checkpoints of one run
-(tail/SWA averaging) into a new variables directory: the port of
-``tools/ckpt_average.py``.
+(tail/SWA averaging) into a new Orbax variables directory, as the JAX
+package writes it: the port of ``tools/ckpt_average.py``.
 
     python -m nhans_tpu_torch.tools.ckpt_average \\
         --checkpoint_root ck/nhans --steps 70000,72500,75000 --out ck_avg

@@ -9,8 +9,8 @@ matters).  The port of ``tools/ckpt_npz.py``.
 
 ``pack`` takes any checkpoint ``train/checkpoint.py::load`` reads (a step
 directory or its run root, a variables directory, a flat ``.npz``, the
-port's or the JAX package's Orbax forms); ``unpack`` writes the port's
-variables directory (``save_variables``).
+port's or the JAX package's Orbax forms); ``unpack`` writes the Orbax
+variables directory both packages read (``save_variables``).
 """
 
 from __future__ import annotations

@@ -67,7 +67,7 @@ def main(argv=None) -> list:
         noise_wav_dir=args.noise_wav_dir, eval_seeds=args.eval_seeds,
         eval_pairing=args.eval_pairing))
     steps = ([int(s) for s in args.steps.split(",")] if args.steps
-             else ckpt.list_steps(args.checkpoint_root, orbax_steps=True))
+             else ckpt.list_steps(args.checkpoint_root))
     try:
         device = resolve_device(args.device)
     except RuntimeError as err:

@@ -1,40 +1,43 @@
 """Checkpoints of training: step directories with keep-K and auto-resume,
 the port of ``nhans_tpu/train/checkpoint.py``.
 
-The port writes its own form: ``<checkpoint_dir>/<model_name>/<step>/``
-holds
+The port writes what the JAX package writes (``compat/orbax.py``), so
+either package restores the other's checkpoints:
 
-* ``variables.npz``: the flat float32 ``params/...`` and
-  ``batch_stats/...`` arrays under the flax names, conv kernels HWIO, the
-  layout ``compat/weights.py::load_npz`` reads (so serving takes a step
-  directory's ``variables.npz`` as its ``--checkpoint``);
-* ``train_state.npz``: the step, the optimizer's name and update count,
-  and each of its state slots as ``opt/<slot>/<flax path>``.
+* ``save_variables`` (``load_denoiser``, ``tools/ckpt_average``,
+  ``tools/ckpt_npz unpack``): an Orbax variables directory, the tree
+  ``{"batch_stats": ..., "params": ...}`` of float32 arrays under the
+  flax names (conv kernels HWIO);
+* ``Checkpointer.save``: ``<checkpoint_dir>/<model_name>/<step>/`` with
+  ``_CHECKPOINT_METADATA`` and the JAX ``TrainState`` under ``default/``:
+  ``step`` (int32), ``params``, ``batch_stats`` and ``opt_state``, the
+  optax state of the run's ``--alg``, lr schedule and ``--mom``
+  (``OPTAX_CHAINS``), its counts int32.
 
-A step directory is written under a temporary name and renamed, so a
-reader never sees half of one.  A variables directory
-(``save_variables``: ``load_denoiser``, ``tools/ckpt_average``,
-``tools/ckpt_npz unpack``) holds only ``variables.npz``, itself written
-under a temporary name and renamed; it stands where the JAX package
-writes an Orbax directory.  Both files hold full tensors: a
-tensor-parallel run joins its model-axis blocks before it saves, and
-``load_into`` cuts them again for a model whose wide kernels hold blocks
-(``parallel/sharding_rules.py``), so a checkpoint loads on any mesh.
+Both are written under a temporary name that neither package takes for
+a checkpoint and renamed, so a reader never sees half of one.  They
+hold full tensors: a tensor-parallel run joins its model-axis blocks
+before it saves, and ``load_into`` cuts them again for a model whose
+wide kernels hold blocks (``parallel/sharding_rules.py``), so a
+checkpoint loads on any mesh.
 
-The readers (``load``, ``load_variables``, ``checkpoint_keys``) also take
-the Orbax directories the JAX package writes (``compat/orbax.py``): a
-``save_variables`` directory, a ``Checkpointer`` step directory
-(``<step>/default``) and its run root (``<checkpoint_dir>`` or
-``<checkpoint_dir>/<model_name>``: the latest step).  They give the same
-flat dicts as the port's own form; a train state's optax tree is mapped
-onto the port's optimizer slots by ``OPTAX_SLOTS``.  Auto-resume and the
-writers stay on the port's own form.
+The readers (``load``, ``load_variables``, ``checkpoint_keys``) take
+those directories, the JAX package's, a run root (``<checkpoint_dir>``
+or ``<checkpoint_dir>/<model_name>``: the latest step), and the ``.npz``
+forms earlier versions of the port wrote: a flat ``.npz``, a variables
+directory holding ``variables.npz``, and a step directory holding
+``variables.npz`` and ``train_state.npz`` (the step, the optimizer's
+name and update count, and each slot as ``opt/<slot>/<flax path>``).
+Steps of both forms count alike (``list_steps``): in a root holding both,
+the latest step wins.  An Orbax train state's optax tree maps onto the
+port's optimizer slots by ``OPTAX_SLOTS``.
 """
 
 from __future__ import annotations
 
 import os
 import shutil
+import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -43,38 +46,85 @@ import torch
 from nhans_tpu_torch.compat import orbax
 from nhans_tpu_torch.compat.weights import from_flax, to_flax
 from nhans_tpu_torch.parallel.sharding_rules import cut_full, model_shards
+from nhans_tpu_torch.train.optim import make_schedule
 
 VARIABLES = "variables.npz"
 TRAIN_STATE = "train_state.npz"
 # what marks a directory as Orbax's: a step directory nests its tree
 # under default/, which counts only where it holds the tree's _METADATA
-_ORBAX_MARKERS = ("_CHECKPOINT_METADATA", "manifest.ocdbt", orbax.METADATA,
+_ORBAX_MARKERS = (orbax.CHECKPOINT_METADATA, orbax.MANIFEST, orbax.METADATA,
                   os.path.join("default", orbax.METADATA))
-# optax's state tree under ``opt_state`` for each --alg (optax 0.2.6 as
-# nhans_tpu/train/optim.py chains it): {"<chain index>/<field>": the
-# port's slot}.  Empty nodes (EmptyState) hold nothing; a ``count`` field
-# (adam's, or a schedule's) is the update count, which without one is
-# the step.
-OPTAX_SLOTS = {
-    "sgd": {},
-    "momentum": {"0/trace": "trace"},
-    "rmsprop": {"0/nu": "nu", "2/trace": "trace"},
-    "adadelta": {"1/e_g": "e_g", "1/e_x": "e_x"},
-    "adagrad": {"0/sum_of_squares": "sum_of_squares"},
-    "adam": {"0/mu": "mu", "0/nu": "nu"},
+# optax's state under ``opt_state`` for each --alg (optax 0.2.6, chained
+# as nhans_tpu/train/optim.py chains it): the fields of each state of the
+# chain, () for an EmptyState.  LR stands for the learning-rate state,
+# ScaleByScheduleState(count) where lr is a schedule (--lr_schedule
+# cosine with --lr_decay_steps) and else an EmptyState; MOM for
+# rmsprop's momentum, TraceState(trace) with a nonzero --mom and else an
+# EmptyState.  A ``count`` is the update count; every other field holds
+# one array per parameter and is the port's optimizer slot of its name.
+LR, MOM = "lr", "mom"
+OPTAX_CHAINS = {
+    "sgd": ((), LR),
+    "momentum": (("trace",), LR),
+    "rmsprop": (("nu",), LR, MOM),
+    "adadelta": ((), ("e_g", "e_x"), LR),
+    "adagrad": (("sum_of_squares",), LR),
+    "adam": (("count", "mu", "nu"), LR),
 }
 
 
-def flat_train_state(state, alg: str) -> Tuple[dict, dict]:
-    """(variables, train_state) flat numpy dicts of a ``TrainState``."""
-    variables = {**to_flax(state.params, "params"),
-                 **to_flax(state.batch_stats, "batch_stats")}
-    extra = {"step": np.int64(state.step), "alg": np.array(alg),
-             "opt/count": np.int64(state.opt_state["count"])}
-    for slot, tensors in state.opt_state.items():
-        if slot != "count":
-            extra.update(to_flax(tensors, f"opt/{slot}"))
-    return variables, extra
+def optax_chain(alg: str, scheduled: bool = False, mom: float = 0.0
+                ) -> Tuple[Tuple[str, ...], ...]:
+    """The fields of each state of optax's chain for ``alg``, with lr a
+    schedule or not and rmsprop's ``mom``."""
+    alg = alg.lower()
+    if alg not in OPTAX_CHAINS:
+        raise ValueError(f"unknown optimizer --alg={alg!r}")
+    sub = {LR: ("count",) if scheduled else (),
+           MOM: ("trace",) if mom else ()}
+    return tuple(sub.get(fields, fields) for fields in OPTAX_CHAINS[alg])
+
+
+# {"<chain index>/<field>": the port's slot} of every chain of an --alg
+OPTAX_SLOTS = {
+    alg: {f"{i}/{field}": field for scheduled in (False, True)
+          for mom in (0.0, 1.0)
+          for i, fields in enumerate(optax_chain(alg, scheduled, mom))
+          for field in fields if field != "count"}
+    for alg in OPTAX_CHAINS}
+
+
+def _tree_order(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """``flat`` in the order a tree of nested dicts flattens (each
+    level's keys sorted)."""
+    return {k: flat[k] for k in sorted(flat, key=lambda k: k.split("/"))}
+
+
+def orbax_train_state(state, chain) -> Dict[str, Optional[np.ndarray]]:
+    """The JAX ``TrainState`` tree of the port's ``TrainState``, flat in
+    its flatten order (``orbax.write``): ``step``, ``params``,
+    ``batch_stats`` and ``opt_state`` laid out as ``chain``
+    (``optax_chain``); a slot the chain lacks or misses raises
+    ``ValueError``."""
+    opt = state.opt_state
+    fields = {f for c in chain for f in c if f != "count"}
+    if fields != set(opt) - {"count"}:
+        raise ValueError(f"the optimizer slots {sorted(opt)} do not fit "
+                         f"the optax chain {chain}")
+    count = np.int32(opt["count"])
+    flat = {"step": np.int32(state.step),
+            **_tree_order(to_flax(state.params, "params")),
+            **_tree_order(to_flax(state.batch_stats, "batch_stats"))}
+    for i, chained in enumerate(chain):
+        if not chained:
+            flat[f"opt_state/{i}"] = None
+        for field in chained:
+            if field == "count":
+                flat[f"opt_state/{i}/count"] = count
+            else:
+                flat.update(_tree_order(to_flax(
+                    opt[field], f"opt_state/{i}/{field}")))
+    return flat
 
 
 def opt_state_from_flat(extra: dict, device) -> dict:
@@ -95,18 +145,19 @@ def is_orbax(path: str) -> bool:
         os.path.exists(os.path.join(path, m)) for m in _ORBAX_MARKERS)
 
 
-def _is_step(path: str, orbax_steps: bool) -> bool:
-    return os.path.exists(os.path.join(path, TRAIN_STATE)) or (
-        orbax_steps and orbax.is_checkpoint(os.path.join(path, "default")))
+def _is_step(path: str) -> bool:
+    return (orbax.is_checkpoint(os.path.join(path, "default"))
+            or os.path.exists(os.path.join(path, TRAIN_STATE)))
 
 
-def list_steps(path: str, orbax_steps: bool = False):
-    """The complete step directories under ``path``, in order: the port's
-    own, and with ``orbax_steps`` the JAX package's Orbax steps too."""
+def list_steps(path: str):
+    """The complete step directories under ``path``, in order: Orbax
+    steps (the port's and the JAX package's) and the ``.npz`` steps of
+    earlier versions of the port."""
     if not os.path.isdir(path):
         return []
     return sorted(int(d) for d in os.listdir(path) if d.isdigit()
-                  and _is_step(os.path.join(path, d), orbax_steps))
+                  and _is_step(os.path.join(path, d)))
 
 
 def resolve(path: str) -> str:
@@ -117,7 +168,7 @@ def resolve(path: str) -> str:
     for _ in range(2):
         if os.path.exists(os.path.join(path, VARIABLES)) or is_orbax(path):
             return path
-        steps = list_steps(path, orbax_steps=True)
+        steps = list_steps(path)
         if steps:
             return os.path.join(path, str(steps[-1]))
         subs = [d for d in os.listdir(path)
@@ -129,15 +180,25 @@ def resolve(path: str) -> str:
     return path
 
 
-def save_variables(directory: str, variables: Dict[str, np.ndarray]) -> str:
-    """Write flat flax variables as ``<directory>/variables.npz`` (the
-    directory made if need be), under a temporary name and renamed;
-    returns the file's path."""
-    os.makedirs(directory, exist_ok=True)
-    final = os.path.join(directory, VARIABLES)
-    tmp = os.path.join(directory, f"variables.tmp-{os.getpid()}.npz")
-    np.savez(tmp, **variables)
+def _replace(tmp: str, final: str) -> None:
+    """Move the finished ``tmp`` to ``final``, in place of what was
+    there."""
+    shutil.rmtree(final, ignore_errors=True)
     os.replace(tmp, final)
+
+
+def save_variables(directory: str, variables: Dict[str, np.ndarray]) -> str:
+    """Write flat flax variables (``params/...``, ``batch_stats/...``) as
+    the Orbax variables directory ``directory``, as the JAX package's
+    ``save_variables`` does (in place of what was there); returns its
+    path."""
+    started = time.time_ns()
+    final = os.path.abspath(directory)
+    tmp = f"{final}.tmp-{os.getpid()}"
+    shutil.rmtree(tmp, ignore_errors=True)
+    orbax.write(tmp, _tree_order(variables))
+    orbax.write_checkpoint_metadata(tmp, step=False, init_ns=started)
+    _replace(tmp, final)
     return final
 
 
@@ -167,11 +228,13 @@ def _read(npz: str) -> Dict[str, np.ndarray]:
 
 
 def _read_orbax_variables(tree: str, flat=None) -> Dict[str, np.ndarray]:
-    """The float32 ``params/...`` and ``batch_stats/...`` of an Orbax
-    tree (read from ``tree`` unless its arrays ``flat`` are given)."""
+    """The ``params/...`` and ``batch_stats/...`` of an Orbax tree (read
+    from ``tree`` unless its arrays ``flat`` are given), floats as
+    float32."""
     if flat is None:
         flat = orbax.read(tree, keep=("params", "batch_stats"))
-    return {k: v.astype(np.float32, copy=False) for k, v in flat.items()
+    return {k: v.astype(np.float32, copy=False) if v.dtype.kind == "f"
+            else v for k, v in flat.items()
             if k.split("/", 1)[0] in ("params", "batch_stats")}
 
 
@@ -252,24 +315,29 @@ def checkpoint_keys(path: str) -> frozenset:
 
 class Checkpointer:
     """Step directories under ``<directory>/<name>``: save, keep the
-    newest ``max_to_keep``, find and restore the latest."""
+    newest ``max_to_keep``, find and restore the latest.  ``alg``,
+    ``scheduled`` (lr is a schedule) and ``mom`` are the run's: they fix
+    the optax tree a step holds (``optax_chain``)."""
 
     def __init__(self, directory: str, max_to_keep: int = 1_000_000,
-                 name: str = "nhans"):
+                 name: str = "nhans", alg: str = "sgd",
+                 scheduled: bool = False, mom: float = 0.0):
         self.path = os.path.abspath(os.path.join(directory, name))
         os.makedirs(self.path, exist_ok=True)
         self.max_to_keep = max_to_keep
+        self.alg = alg.lower()
+        self.chain = optax_chain(alg, scheduled, mom)
 
-    def save(self, step: int, state, alg: str) -> str:
-        variables, extra = flat_train_state(state, alg)
+    def save(self, step: int, state) -> str:
+        started = time.time_ns()
         final = os.path.join(self.path, str(step))
         tmp = f"{final}.tmp-{os.getpid()}"
         shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
-        np.savez(os.path.join(tmp, VARIABLES), **variables)
-        np.savez(os.path.join(tmp, TRAIN_STATE), **extra)
-        shutil.rmtree(final, ignore_errors=True)
-        os.replace(tmp, final)
+        orbax.write(os.path.join(tmp, "default"),
+                    orbax_train_state(state, self.chain),
+                    sequences=("opt_state",))
+        orbax.write_checkpoint_metadata(tmp, step=True, init_ns=started)
+        _replace(tmp, final)
         for old in self.steps()[:-self.max_to_keep]:
             shutil.rmtree(os.path.join(self.path, str(old)))
         return final
@@ -287,8 +355,18 @@ class Checkpointer:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {self.path}")
-        variables, extra = load(os.path.join(self.path, str(step)))
+        variables, extra = load(os.path.join(self.path, str(step)),
+                                alg=self.alg)
         return step, variables, extra
+
+
+def make_checkpointer(train) -> Checkpointer:
+    """The ``Checkpointer`` of a run's ``TrainConfig``."""
+    scheduled = callable(make_schedule(train.lr, train.lr_schedule,
+                                       train.lr_decay_steps,
+                                       train.lr_min_frac))
+    return Checkpointer(train.checkpoint_dir, train.checkpoints_to_keep,
+                        train.model_name, train.alg, scheduled, train.mom)
 
 
 def load_into(model: torch.nn.Module, variables: dict) -> None:

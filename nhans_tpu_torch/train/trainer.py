@@ -14,8 +14,9 @@
   before its batch is fetched to after its last kernel, so by the
   device's clock with the input wait included; the metrics record holds
   the mean over the monitor window as ``step_device_ms``.
-* Every ``eval_every`` steps and at the end, a checkpoint is saved and
-  its weights are scored on ``EvalLoader(cfg, limit=eval_utts)``
+* Every ``eval_every`` steps and at the end, a checkpoint is saved (the
+  Orbax step directory the JAX trainer writes, ``train/checkpoint.py``,
+  so either package resumes it) and its weights are scored on ``EvalLoader(cfg, limit=eval_utts)``
   (``train/evaluate.py``), and the metrics go to the record at that
   step.  The evaluator holds its own copy of the model in inference
   mode, so the training module's mode never changes.  With
@@ -93,8 +94,7 @@ class Trainer:
         self.banked = banks_enabled(cfg)
         self.step_fn = make_train_step(cfg, self.model, self.tx,
                                        banked=self.banked, mesh=self.mesh)
-        self.ckpt = ckpt.Checkpointer(t.checkpoint_dir,
-                                      t.checkpoints_to_keep, t.model_name)
+        self.ckpt = ckpt.make_checkpointer(t)
         self.evaluator = self.writer = self.monitor = None
         if self.primary:
             self.evaluator = Evaluator(cfg, build_model(cfg).to(self.device),
@@ -184,7 +184,7 @@ class Trainer:
         self._beat(f"save(step {self.tstep})")
         full = self._full_state()
         if self.primary:
-            path = self.ckpt.save(self.tstep, full, self.cfg.train.alg)
+            path = self.ckpt.save(self.tstep, full)
             print(f"checkpoint written: {path}")
         barrier()
         if not self.primary:

@@ -1,6 +1,6 @@
-"""zstd decompression through the system's ``libzstd.so.1``, bound with
-ctypes (no Python package): the codec of Orbax's OCDBT nodes and of its
-zarr chunks (``compat/orbax.py``).
+"""zstd through the system's ``libzstd.so.1``, bound with ctypes (no
+Python package): the codec of Orbax's OCDBT nodes and of its zarr chunks
+(``compat/orbax.py``), both ways.
 
 ``ZSTD_decompressStream`` is used rather than ``ZSTD_decompress``
 because a frame need not record its content size (tensorstore writes
@@ -49,7 +49,7 @@ def _load() -> ctypes.CDLL:
             else:
                 raise RuntimeError(
                     f"{LIBRARY} (the zstd library) was not found; it is "
-                    "needed to read Orbax checkpoints")
+                    "needed to read and write Orbax checkpoints")
             lib.ZSTD_createDStream.restype = ctypes.c_void_p
             lib.ZSTD_createDStream.argtypes = []
             lib.ZSTD_freeDStream.restype = ctypes.c_size_t
@@ -64,6 +64,12 @@ def _load() -> ctypes.CDLL:
             lib.ZSTD_isError.argtypes = [ctypes.c_size_t]
             lib.ZSTD_getErrorName.restype = ctypes.c_char_p
             lib.ZSTD_getErrorName.argtypes = [ctypes.c_size_t]
+            lib.ZSTD_compressBound.restype = ctypes.c_size_t
+            lib.ZSTD_compressBound.argtypes = [ctypes.c_size_t]
+            lib.ZSTD_compress.restype = ctypes.c_size_t
+            lib.ZSTD_compress.argtypes = [
+                ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p,
+                ctypes.c_size_t, ctypes.c_int]
             _lib = lib
     return _lib
 
@@ -119,3 +125,16 @@ def decompress(data: bytes, size: Optional[int] = None,
         raise ValueError(f"{what}: decompressed to {outb.pos} bytes, "
                          f"expected {size}")
     return ctypes.string_at(dst, outb.pos)
+
+
+def compress(data: bytes, level: int) -> bytes:
+    """One zstd frame of ``data`` at ``level`` (0: the library's
+    default); a library error raises ``ValueError``."""
+    lib = _load()
+    data = bytes(data)
+    cap = lib.ZSTD_compressBound(len(data))
+    dst = ctypes.create_string_buffer(cap)
+    n = lib.ZSTD_compress(dst, cap, data, len(data), level)
+    if lib.ZSTD_isError(n):
+        raise ValueError(f"zstd: {lib.ZSTD_getErrorName(n).decode()}")
+    return ctypes.string_at(dst, n)

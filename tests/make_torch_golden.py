@@ -10,6 +10,8 @@ them where JAX is not installed (the machine with the GPU).
     python tests/make_torch_golden.py flops    # FLOP counts, JAX and port
     python tests/make_torch_golden.py orbax    # the Orbax fixtures
     python tests/make_torch_golden.py orbax_read  # time a full-width read
+    python tests/make_torch_golden.py orbax_write  # the port's full-width
+                                   # write, and the JAX package's read of it
 
 The first runs ``nhans_tpu``'s ``Enhancer(out_wire="float32")`` with the
 shipped ``docs/quality/denoiser_q5_swa.npz`` on a seeded 1.5 s input and
@@ -575,17 +577,35 @@ def narrow(cfg):
     return cfg.replace(model=dataclasses.replace(cfg.model, **ORBAX_MODEL))
 
 
-def jax_orbax_config(alg: str):
-    """The JAX package's Config of the fixtures' run with ``--alg alg``:
-    its command line's reference flags, narrowed."""
+def jax_orbax_config(alg: str, flags=ORBAX_FLAGS):
+    """The JAX package's Config of the fixtures' run with ``--alg alg``
+    (and ``flags``, by default the fixtures'): its command line's
+    reference flags, narrowed."""
     import argparse
 
     from nhans_tpu.config import add_reference_flags, config_from_args
 
     p = argparse.ArgumentParser()
     add_reference_flags(p, inference=False)
-    return narrow(config_from_args(p.parse_args(["--alg", alg,
-                                                 *ORBAX_FLAGS])))
+    return narrow(config_from_args(p.parse_args(["--alg", alg, *flags])))
+
+
+def jax_next_step(jcfg, model, tx, state, seed: int) -> dict:
+    """The golden of the JAX package's train step from ``state`` on
+    ``golden_train_inputs(seed)`` with ``PRNGKey(seed)``: the seed, the
+    step it starts from and ``jax_step_record``'s keys."""
+    import jax
+    import jax.numpy as jnp
+
+    from nhans_tpu.train.step import make_train_step
+
+    step = make_train_step(jcfg, model, tx, donate=False)
+    raw = golden_train_inputs(seed)
+    key = jax.random.PRNGKey(seed)
+    new, metrics = step(state, {k: jnp.asarray(v) for k, v in raw.items()},
+                        key)
+    return {"seed": np.int64(seed), "step": np.int64(state.step),
+            **jax_step_record(jcfg, raw, key, state.params, new, metrics)}
 
 
 def jax_orbax_state(jcfg, variables=None, grads_seed=None):
@@ -661,23 +681,15 @@ def jax_orbax_fixtures(root: str, alg: str = "adam",
         "/".join(str(getattr(k, "key", k)) for k in path): np.asarray(x)
         for path, x in jax.tree_util.tree_flatten_with_path(variables)[0]})
     step = make_train_step(jcfg, model, tx, donate=False)
-
-    def batch(seed):
-        raw = golden_train_inputs(seed)
-        return raw, {k: jnp.asarray(v) for k, v in raw.items()}
-
-    state, _ = step(state, batch(ORBAX_SEED)[1],
-                    jax.random.PRNGKey(ORBAX_SEED))
+    batch = {k: jnp.asarray(v)
+             for k, v in golden_train_inputs(ORBAX_SEED).items()}
+    state, _ = step(state, batch, jax.random.PRNGKey(ORBAX_SEED))
     # as the trainer saves: a host snapshot at its step
     ckpt = Checkpointer(paths["run"])
     ckpt.save(int(state.step), jax.device_get(state))
     ckpt.wait()
     ckpt.close()
-    raw, dev = batch(ORBAX_SEED + 1)
-    key = jax.random.PRNGKey(ORBAX_SEED + 1)
-    new, metrics = step(state, dev, key)
-    golden = {"seed": np.int64(ORBAX_SEED + 1), "step": np.int64(state.step),
-              **jax_step_record(jcfg, raw, key, state.params, new, metrics)}
+    golden = jax_next_step(jcfg, model, tx, state, ORBAX_SEED + 1)
     np.savez_compressed(paths["golden"], **golden)
     return golden
 
@@ -703,11 +715,41 @@ def orbax_read_times(repeats: int = 5) -> dict:
     return {"arrays": n, "bytes": size, "read_s": seconds}
 
 
+def orbax_write_times(repeats: int = 3) -> dict:
+    """The shipped denoiser weights written at full width by the port's
+    ``save_variables`` (a temporary directory) and read back by the JAX
+    package's ``load_variables``: the directory's bytes and each write's
+    and read's wall seconds on the CPU it runs on (the page cache warm
+    from the write)."""
+    import jax
+
+    from nhans_tpu.train.checkpoint import load_variables as jax_load
+    from nhans_tpu_torch.train.checkpoint import save_variables
+
+    with np.load(DENOISER_NPZ) as z:
+        flat = {k: z[k].astype(np.float32) for k in z.files}
+    out = {"arrays": len(flat), "write_s": [], "read_s": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "q5")
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            save_variables(path, flat)
+            out["write_s"].append(time.perf_counter() - t0)
+        out["bytes"] = sum(os.path.getsize(os.path.join(d, f))
+                           for d, _, fs in os.walk(tmp) for f in fs)
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            n = len(jax.tree_util.tree_leaves(jax_load(path)))
+            out["read_s"].append(time.perf_counter() - t0)
+        assert n == len(flat)
+    return out
+
+
 def port_orbax_trainer(run: str, alg: str, device, workdir: str):
     """The port's Trainer of ``python -m nhans_tpu_torch.cli.train
     --restore_path run --alg alg`` with the fixtures' flags, its model
     narrowed (the command line has no width flags), writing under
-    ``workdir``."""
+    ``workdir`` (and, where ``run`` is empty, resuming from there)."""
     from nhans_tpu_torch.cli.train import parser
     from nhans_tpu_torch.config import config_from_args
     from nhans_tpu_torch.train.trainer import Trainer
@@ -1115,6 +1157,9 @@ def main() -> None:
         return
     if sys.argv[1:] == ["orbax_read"]:
         print(json.dumps(orbax_read_times()))
+        return
+    if sys.argv[1:] == ["orbax_write"]:
+        print(json.dumps(orbax_write_times()))
         return
     if sys.argv[1:] == ["eval"]:
         np.savez_compressed(GOLDEN_EVAL, **jax_eval_golden())

@@ -1,7 +1,9 @@
 """The port's checkpoint tools: ``tools/ckpt_average`` (the float64 mean
 of several step directories, as the JAX tool's ``average_variables``)
 and ``tools/ckpt_npz`` (float16 ``params`` and float32 ``batch_stats``,
-the format of docs/quality/*_q5_swa.npz, and back)."""
+the format of docs/quality/*_q5_swa.npz, and back).  Both write the
+Orbax variables directory the JAX tools write; the steps they read are
+Orbax steps as the trainers write them."""
 
 import os
 import subprocess
@@ -14,7 +16,8 @@ from nhans_tpu_torch.compat.weights import flat_variables
 from nhans_tpu_torch.config import Config
 from nhans_tpu_torch.models import random_init_state
 from nhans_tpu_torch.tools import ckpt_average, ckpt_npz
-from nhans_tpu_torch.train.checkpoint import TRAIN_STATE, VARIABLES, load
+from nhans_tpu_torch.compat import orbax
+from nhans_tpu_torch.train.checkpoint import load
 from tests.make_torch_golden import DENOISER_NPZ
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
@@ -40,11 +43,20 @@ def _variables(seed):
 
 
 def _steps(root, flats):
+    """Orbax step directories ``<root>/<step>`` holding the step and
+    ``flats[step]``."""
     for step, flat in flats.items():
         d = os.path.join(root, str(step))
-        os.makedirs(d)
-        np.savez(os.path.join(d, VARIABLES), **flat)
-        np.savez(os.path.join(d, TRAIN_STATE), step=np.int64(step))
+        orbax.write(os.path.join(d, "default"),
+                    {"step": np.int32(step), **flat})
+        orbax.write_checkpoint_metadata(d, step=True, init_ns=0)
+
+
+def _variables_dir(path):
+    """The arrays of an Orbax variables directory, their dtypes kept."""
+    assert sorted(os.listdir(path)) == ["_CHECKPOINT_METADATA", "_METADATA",
+                                        "d", "manifest.ocdbt"]
+    return orbax.read(path)
 
 
 def _unflatten(flat):
@@ -67,12 +79,12 @@ def test_average_is_the_float64_mean_as_the_jax_tool(tmp_path):
     out = ckpt_average.main(["--checkpoint_root", str(tmp_path / "run"),
                              "--steps", "100,300", "--out",
                              str(tmp_path / "avg")])
-    assert sorted(os.listdir(out)) == [VARIABLES]
-    got = _npz(os.path.join(out, VARIABLES))
+    got = _variables_dir(out)
     jax_avg = j_average([_unflatten(flats[100]), _unflatten(flats[300])])
     for key, a in flats[100].items():
         if key == "params/count":
-            assert got[key] == 7  # integers pass through from the first
+            # integers pass through from the first
+            assert got[key] == 7 and got[key].dtype == np.int32
             continue
         want = (a.astype(np.float64) + flats[300][key]) / 2
         assert got[key].dtype == np.float32
@@ -94,7 +106,7 @@ def test_average_refuses_checkpoints_of_different_models(tmp_path):
 
 def test_unpack_then_pack_gives_the_shipped_file_back(tmp_path):
     vdir = ckpt_npz.unpack(DENOISER_NPZ, str(tmp_path / "vars"))
-    unpacked = _npz(os.path.join(vdir, VARIABLES))
+    unpacked = _variables_dir(vdir)
     assert all(v.dtype == np.float32 for v in unpacked.values())
     r = subprocess.run([sys.executable, "-m", "nhans_tpu_torch.tools.ckpt_npz",
                         "pack", vdir, str(tmp_path / "packed.npz")],

@@ -28,8 +28,12 @@ from nhans_tpu_torch.compat.weights import load_npz
 from nhans_tpu_torch.config import Config
 from nhans_tpu_torch.infer.enhance import Enhancer
 from nhans_tpu_torch.models import build_model, random_init_state
+from nhans_tpu_torch.compat import orbax
+from nhans_tpu_torch.compat.weights import from_flax
 from nhans_tpu_torch.train.checkpoint import (TRAIN_STATE, VARIABLES,
-                                              load_into)
+                                              Checkpointer, load_into,
+                                              load_variables, save_variables)
+from nhans_tpu_torch.train.step import TrainState
 from tests.make_torch_golden import (DENOISER_NPZ, GOLDEN, GOLDEN_RANDOM_INIT,
                                      JAX_SNR_RTOL, JAX_WAVE_ATOL,
                                      SEPARATOR_NPZ, golden_inputs,
@@ -63,8 +67,10 @@ def test_load_model_converts_a_tf_bundle_exactly(tmp_path, task):
                 prefix, "--output", str(out))
     assert r.returncode == 0, r.stderr
     assert "converted TF checkpoint" in r.stdout
-    assert sorted(os.listdir(out)) == [VARIABLES]
-    got, want = _npz(out / VARIABLES), _npz(NPZ[task])
+    # the Orbax variables directory the JAX command writes
+    assert sorted(os.listdir(out)) == ["_CHECKPOINT_METADATA", "_METADATA",
+                                       "d", "manifest.ocdbt"]
+    got, want = orbax.read(str(out)), _npz(NPZ[task])
     assert sorted(got) == sorted(want)
     for key, value in want.items():
         assert got[key].dtype == np.float32
@@ -115,11 +121,23 @@ def test_bad_bundle_is_a_message(tmp_path):
     assert not os.path.exists(tmp_path / "o")
 
 
-def _step_tree(root, flat):
-    """A trainer's layout: <root>/nhans/<step>/{variables,train_state}.npz,
-    steps 2 and 5, the latest holding ``flat``."""
+def _step_tree(root, flat, orbax_steps):
+    """A trainer's layout, steps 2 and 5, the latest holding ``flat``:
+    Orbax steps as the port's trainer writes them (an sgd state), or the
+    ``<root>/nhans/<step>/{variables,train_state}.npz`` of earlier
+    versions of the port."""
     for step, values in ((2, {k: v * 0 for k, v in flat.items()}),
                          (5, flat)):
+        if orbax_steps:
+            state = from_flax(values)
+            stats = {k for k in state if k.endswith("pop_mean")
+                     or k.endswith("pop_variance")}
+            Checkpointer(root).save(step, TrainState(
+                step=step,
+                params={k: v for k, v in state.items() if k not in stats},
+                batch_stats={k: state[k] for k in stats},
+                opt_state={"count": step}))
+            continue
         d = os.path.join(root, "nhans", str(step))
         os.makedirs(d)
         np.savez(os.path.join(d, VARIABLES), **values)
@@ -129,17 +147,26 @@ def _step_tree(root, flat):
 
 
 def test_checkpoint_forms_give_the_same_weights(tmp_path):
+    """Every form ``--checkpoint`` takes, the Orbax forms the port writes
+    and the ``.npz`` forms of its earlier versions, serves the shipped
+    weights exactly."""
     flat = {k: v.astype(np.float32) for k, v in _npz(DENOISER_NPZ).items()}
-    step_dir = _step_tree(str(tmp_path / "ck"), flat)
-    vdir = tmp_path / "vars"
+    forms = [DENOISER_NPZ]
+    for tag, orbax_steps in (("ck", True), ("ck_npz", False)):
+        root = tmp_path / tag
+        forms += [_step_tree(str(root), flat, orbax_steps), str(root),
+                  str(root / "nhans")]
+    forms.append(save_variables(str(tmp_path / "vars"), flat))
+    vdir = tmp_path / "vars_npz"
     vdir.mkdir()
     np.savez(vdir / VARIABLES, **flat)
+    forms.append(str(vdir))
     cfg = Config.denoiser()
     want = load_npz(DENOISER_NPZ)
-    for form in (DENOISER_NPZ, str(vdir), step_dir, str(tmp_path / "ck"),
-                 str(tmp_path / "ck" / "nhans")):
+    for form in forms:
         state = load_weights(cfg, form)
         assert all(torch.equal(state[k], want[k]) for k in want), form
+    assert sorted(load_variables(str(tmp_path / "vars"))) == sorted(flat)
 
 
 def test_orbax_directory_is_refused_with_the_pack_route(tmp_path):

@@ -131,8 +131,7 @@ def test_every_orbax_form_reads_back_exactly(tmp_path):
     assert not np.array_equal(
         ckpt.load_variables(str(run / "1"))["params/last_dense/b"],
         ckpt.load_variables(str(run))["params/last_dense/b"])
-    assert ckpt.list_steps(str(run)) == []
-    assert ckpt.list_steps(str(run), orbax_steps=True) == [1, 2]
+    assert ckpt.list_steps(str(run)) == [1, 2]
 
 
 def test_checkpoint_tools_take_orbax_directories(tmp_path):

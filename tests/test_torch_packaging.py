@@ -142,7 +142,8 @@ def test_installed_scripts_exit_zero(installed, tmp_path):
                            capture_output=True, text=True, timeout=120)
         assert r.returncode == 0, r.stdout + r.stderr
     assert (tmp_path / "speech" / "train.json").exists()
-    assert (tmp_path / "init" / "variables.npz").exists()
+    assert (tmp_path / "init" / "_METADATA").exists()
+    assert (tmp_path / "init" / "manifest.ocdbt").exists()
 
 
 _BUILD_PROBE = ("from nhans_tpu_torch.ops import _build\n"

@@ -15,7 +15,8 @@ from nhans_tpu_torch.tools import train_supervisor as sup
 from nhans_tpu_torch.train.checkpoint import TRAIN_STATE
 from tests.test_torch_eval_cli import _corpus
 
-# a stand-in for cli.train: saves step --batches under --checkpoint_dir;
+# a stand-in for cli.train: saves step --batches under --checkpoint_dir
+# (the marks of an Orbax step: its tree's _METADATA under default/);
 # with --fail_file it first fails (exit 3) as many times as the file says,
 # and with --fail_after_save it saves and then fails
 STUB = r"""
@@ -30,8 +31,9 @@ if "--fail_file" in args:
         open(path, "w").write(str(left - 1))
         sys.exit(3)
 d = os.path.join(ck, "nhans", str(stop))
-os.makedirs(d)
-open(os.path.join(d, "train_state.npz"), "wb").close()
+os.makedirs(os.path.join(d, "default"))
+open(os.path.join(d, "default", "_METADATA"), "w").close()
+open(os.path.join(d, "_CHECKPOINT_METADATA"), "w").close()
 if "--fail_after_save" in args:
     sys.exit(1)
 """
@@ -54,12 +56,21 @@ def test_chunks_run_from_the_latest_step_to_the_target(tmp_path):
 
 
 def test_latest_step_takes_complete_steps_only(tmp_path):
+    """Orbax steps and the ``.npz`` steps of earlier versions of the port
+    count; a half-written step (no tree ``_METADATA`` yet) and a
+    temporary name do not."""
     base = tmp_path / "ck" / "nhans"
-    for name, complete in (("3", True), ("12.tmp-77", True), ("9", False)):
-        (base / name).mkdir(parents=True)
-        if complete:
+    for name, kind in (("3", "orbax"), ("2", "npz"), ("12.tmp-77", "orbax"),
+                       ("9", None)):
+        (base / name / "default").mkdir(parents=True)
+        if kind == "orbax":
+            (base / name / "default" / "_METADATA").write_text("{}")
+        elif kind == "npz":
             (base / name / TRAIN_STATE).write_bytes(b"")
     assert sup.latest_step(str(tmp_path / "ck")) == 3
+    (base / "5").mkdir()
+    (base / "5" / TRAIN_STATE).write_bytes(b"")
+    assert sup.latest_step(str(tmp_path / "ck")) == 5
     assert sup.latest_step(str(tmp_path / "absent")) == 0
 
 
@@ -103,6 +114,8 @@ def test_two_real_chunks_resume_each_other(tmp_path):
         "--train_monitor_every", "1", "--eval_every", "1"])
     assert runs == [(0, 1, 0), (1, 2, 0)]
     assert sorted(os.listdir(os.path.join(ck, "nhans"))) == ["1", "2"]
+    assert os.path.isfile(os.path.join(ck, "nhans", "2", "default",
+                                       "_METADATA"))
     with open(os.path.join(summ, "nhans.jsonl")) as f:
         steps = [r["step"] for r in map(json.loads, f) if "loss" in r]
     assert steps == [1, 2]  # the second process took step 2 only

@@ -217,17 +217,23 @@ def test_checkpoint_layout_keep_k_and_restore_path(tmp_path):
     tr = Trainer(cfg, eval_utts=0, device="cpu")
     tr.train()
     assert tr.ckpt.steps() == [2, 3]
+    assert sorted(os.listdir(tr.ckpt.path)) == ["2", "3"]
     step_dir = os.path.join(tr.ckpt.path, "3")
-    # serving reads a step directory's variables as a flat .npz
-    from nhans_tpu_torch.compat.weights import load_npz
-    state = load_npz(os.path.join(step_dir, ckpt.VARIABLES))
+    # the JAX trainer's Orbax step: its tree under default/, whose
+    # variables serving reads
+    assert sorted(os.listdir(step_dir)) == ["_CHECKPOINT_METADATA",
+                                            "default"]
+    from nhans_tpu_torch.compat.weights import from_flax
+    state = from_flax(ckpt.load_variables(step_dir))
     for k, v in tr.model.state_dict().items():
         assert torch.equal(state[k], v), k
-    variables, extra = ckpt.load(os.path.join(tmp_path, "ck"))
+    variables, extra = ckpt.load(os.path.join(tmp_path, "ck"),
+                                 alg="rmsprop")
     assert int(extra["step"]) == 3 and str(extra["alg"]) == "rmsprop"
 
     # a flat .npz: the variables, a fresh optimizer, step 0
-    npz = os.path.join(step_dir, ckpt.VARIABLES)
+    npz = os.path.join(tmp_path, "flat.npz")
+    np.savez(npz, **variables)
     fresh = dataclasses.replace(cfg.train, restore_path=npz,
                                 checkpoint_dir=str(tmp_path / "ck2"))
     tuned = Trainer(cfg.replace(train=fresh), eval_utts=0, device="cpu")
