@@ -13,6 +13,13 @@ outputs agree.  The JAX package's device-tunnel machinery (packed
 parameters, the int16 output wire) is not carried over: outputs are
 float32, as with the JAX ``Enhancer(out_wire="float32")``.
 
+Each batch records spans and counts (``utils/spans.py``) under its
+sequence number while the profiler runs or ``spans.recording()`` is on:
+``enhance.dispatch`` (host preparation, count ``real_windows``),
+``enhance.launch`` around ``enhance.contexts`` and ``enhance.run``
+(count ``windows``), then ``enhance.materialize``.  The counts are taken
+only while a span records.
+
 Several devices (``devices``, the JAX package's ``Enhancer(mesh=...)``):
 one process keeps a replica of the weights on each and splits the rows
 of every batch over them, a contiguous block each; utterances are
@@ -25,6 +32,7 @@ from __future__ import annotations
 import collections
 import copy
 import hashlib
+import itertools
 from typing import Dict, Tuple
 
 import numpy as np
@@ -34,6 +42,7 @@ from nhans_tpu_torch.config import Config
 from nhans_tpu_torch.dsp import spectral as sp
 from nhans_tpu_torch.dsp.windowing import pad_amounts, pad_for_windowing
 from nhans_tpu_torch.nn.model import NHANSNet
+from nhans_tpu_torch.utils import spans
 from nhans_tpu_torch.utils.device import full_float32, resolve_device
 
 
@@ -112,6 +121,7 @@ class Enhancer:
         self.buckets = [int(s * cfg.audio.sample_rate) for s in buckets_seconds]
         self._ctx_cache = collections.OrderedDict()
         self._ctx_cache_max = 8
+        self._seq = itertools.count(1)  # the batches' spans' id
 
     # ------------------------------------------------------------------ #
     # device work
@@ -253,47 +263,66 @@ class Enhancer:
 
     def _dispatch(self, mixed_list, pos_list, neg_list):
         """Host preparation and the batch's device work, left running
-        asynchronously on the card; pair with :meth:`_materialize`."""
-        ctx_n = context_samples(self.cfg)
-        nreal = len(mixed_list)
-        # the next power of two, and at least a row per device
-        B = max(1 << max(0, (nreal - 1).bit_length()), len(self.devices))
-        pad_b = B - nreal
-        mixed_list = list(mixed_list) + [mixed_list[-1]] * pad_b
-        pos_list = list(pos_list) + [pos_list[-1]] * pad_b
-        neg_list = list(neg_list) + [neg_list[-1]] * pad_b
-        prep = [self.prepare_wave(x) for x in mixed_list]
-        n_mixed = np.array([p[1] for p in prep], np.int32)
-        bucket = self._bucket_for(int(n_mixed.max()))
+        asynchronously on the card: (outs, nreal, seq), for
+        :meth:`_finish`.  Span ``enhance.dispatch`` around the padding and
+        context rows, count ``real_windows``: the frames of the real rows
+        (not of the power-of-two pad rows)."""
+        a = self.cfg.audio
+        seq = next(self._seq)
+        with spans.span("enhance.dispatch", id=seq) as s:
+            ctx_n = context_samples(self.cfg)
+            nreal = len(mixed_list)
+            # the next power of two, and at least a row per device
+            B = max(1 << max(0, (nreal - 1).bit_length()), len(self.devices))
+            pad_b = B - nreal
+            mixed_list = list(mixed_list) + [mixed_list[-1]] * pad_b
+            pos_list = list(pos_list) + [pos_list[-1]] * pad_b
+            neg_list = list(neg_list) + [neg_list[-1]] * pad_b
+            prep = [self.prepare_wave(x) for x in mixed_list]
+            n_mixed = np.array([p[1] for p in prep], np.int32)
+            bucket = self._bucket_for(int(n_mixed.max()))
+            if s is not spans.OFF:
+                s.count(real_windows=sum(a.num_frames(int(n))
+                                         for n in n_mixed[:nreal]))
 
-        peaks = np.zeros((B, 3), np.float32)
-        mixed = np.zeros((B, bucket), np.int16)
-        for i, (x, n, pk) in enumerate(prep):
-            mixed[i, :n] = x
-            peaks[i, 0] = pk
-        ctx = np.zeros((B, 2, ctx_n), np.int16)
-        ints = np.zeros((B, 5), np.int32)
-        ints[:, 0] = n_mixed
-        for col, waves in ((0, pos_list), (1, neg_list)):
-            for i, w in enumerate(waves):
-                ctx[i, col], ints[i, col + 1], peaks[i, col + 1] = \
-                    self._context_row(w, ctx_n)
-        ints[:, 4] = sp.num_frames(bucket, self.cfg.audio.frame_length,
-                                   self.cfg.audio.frame_step)
-        return self._launch(mixed, ints, peaks, ctx), nreal
+            peaks = np.zeros((B, 3), np.float32)
+            mixed = np.zeros((B, bucket), np.int16)
+            for i, (x, n, pk) in enumerate(prep):
+                mixed[i, :n] = x
+                peaks[i, 0] = pk
+            ctx = np.zeros((B, 2, ctx_n), np.int16)
+            ints = np.zeros((B, 5), np.int32)
+            ints[:, 0] = n_mixed
+            for col, waves in ((0, pos_list), (1, neg_list)):
+                for i, w in enumerate(waves):
+                    ctx[i, col], ints[i, col + 1], peaks[i, col + 1] = \
+                        self._context_row(w, ctx_n)
+            ints[:, 4] = sp.num_frames(bucket, a.frame_length, a.frame_step)
+        return self._launch(mixed, ints, peaks, ctx, seq), nreal, seq
 
     def _launch(self, mixed: np.ndarray, ints: np.ndarray,
-                peaks: np.ndarray, ctx: np.ndarray) -> list:
+                peaks: np.ndarray, ctx: np.ndarray, seq=None) -> list:
         """The batch's device work, its rows split over the devices in
         contiguous blocks: [(wavs, meta)] per device, still on the
-        devices.  Nothing waits for a device here."""
+        devices.  Nothing waits for a device here.  Span
+        ``enhance.launch`` around each device's ``enhance.contexts`` and
+        ``enhance.run``, count ``windows``: the rows x frames it
+        computes."""
+        a = self.cfg.audio
         per = mixed.shape[0] // len(self.devices)
         outs = []
-        for i in range(len(self.devices)):
-            r = slice(i * per, (i + 1) * per)
-            emb_a, emb_b = self._encode_contexts(ctx[r], ints[r], peaks[r], i)
-            outs.append(self._run(mixed[r], ints[r], peaks[r], emb_a, emb_b,
-                                  i))
+        with spans.span("enhance.launch", id=seq):
+            for i in range(len(self.devices)):
+                r = slice(i * per, (i + 1) * per)
+                with spans.span("enhance.contexts", id=seq):
+                    emb_a, emb_b = self._encode_contexts(ctx[r], ints[r],
+                                                         peaks[r], i)
+                with spans.span("enhance.run", id=seq) as s:
+                    if s is not spans.OFF:
+                        s.count(windows=per * sp.num_frames(
+                            mixed.shape[1], a.frame_length, a.frame_step))
+                    outs.append(self._run(mixed[r], ints[r], peaks[r],
+                                          emb_a, emb_b, i))
         return outs
 
     @staticmethod
@@ -330,12 +359,18 @@ class Enhancer:
             "cap_clip_frac": cap_frac[:nreal],
         }
 
+    def _finish(self, dispatched) -> Dict[str, list]:
+        """The results of a batch that :meth:`_dispatch` left running, on
+        the host; span ``enhance.materialize``."""
+        outs, nreal, seq = dispatched
+        with spans.span("enhance.materialize", id=seq):
+            return self._materialize(outs, nreal)
+
     def enhance_batch(self, mixed_list, pos_list, neg_list) -> Dict[str, list]:
         """Enhance a batch of raw (un-normalised, int16-scale) waveforms
         together, on one bucket sized by the longest one and a batch padded
         to a power of two."""
-        return self._materialize(*self._dispatch(mixed_list, pos_list,
-                                                 neg_list))
+        return self._finish(self._dispatch(mixed_list, pos_list, neg_list))
 
     def enhance_long(self, mixed: np.ndarray, pos: np.ndarray,
                      neg: np.ndarray, segment_seconds: float = 32.0,
@@ -347,7 +382,9 @@ class Enhancer:
         linear, so the segments' waveforms summed at their offsets give the
         unsegmented result up to float addition order.  Edge segments get
         no halo at the utterance's ends, which keeps the zero-padded first
-        and last windows."""
+        and last windows.  Each group of segments records the spans of a
+        batch (``_dispatch``); its ``real_windows`` are the frames of its
+        segments, halos included, not of its empty rows."""
         a = self.cfg.audio
         fl, fs = a.frame_length, a.frame_step
         H = pad_amounts(self.cfg.model.window_frames)[0]  # 17
@@ -370,32 +407,38 @@ class Enhancer:
         ndev = len(self.devices)
         B = -(-max(segment_batch, ndev) // ndev) * ndev
         for i0 in range(0, len(cores), B):
+            seq = next(self._seq)
             group = cores[i0:i0 + B]
-            seg = np.zeros((B, Lseg), np.int16)
-            ints = np.zeros((B, 5), np.int32)   # padded rows keep nothing
-            ints[:, 1], ints[:, 2] = n_pos, n_neg
-            offsets = np.zeros((B,), np.int64)
-            peaks = np.zeros((B, 3), np.float32)
-            peaks[:, 0], peaks[:, 1], peaks[:, 2] = peak, pk_pos, pk_neg
-            for j, c0 in enumerate(group):
-                c1 = min(c0 + core, F_total)
-                h_l = min(H, c0)
-                h_r = min(H, F_total - c1)
-                count = (c1 - c0) + h_l + h_r
-                s0 = (c0 - h_l) * fs
-                ns = min((count - 1) * fs + fl, n - s0)
-                seg[j, :ns] = wav[s0:s0 + ns]
-                ints[j, 0], ints[j, 3], ints[j, 4] = ns, h_l, h_l + (c1 - c0)
-                offsets[j] = s0
-            ctx = np.zeros((B, 2, ctx_n), np.int16)
-            ctx[:, 0], ctx[:, 1] = pos_b, neg_b
+            with spans.span("enhance.dispatch", id=seq) as s:
+                seg = np.zeros((B, Lseg), np.int16)
+                ints = np.zeros((B, 5), np.int32)  # padded rows keep nothing
+                ints[:, 1], ints[:, 2] = n_pos, n_neg
+                offsets = np.zeros((B,), np.int64)
+                peaks = np.zeros((B, 3), np.float32)
+                peaks[:, 0], peaks[:, 1], peaks[:, 2] = peak, pk_pos, pk_neg
+                for j, c0 in enumerate(group):
+                    c1 = min(c0 + core, F_total)
+                    h_l = min(H, c0)
+                    h_r = min(H, F_total - c1)
+                    count = (c1 - c0) + h_l + h_r
+                    s0 = (c0 - h_l) * fs
+                    ns = min((count - 1) * fs + fl, n - s0)
+                    seg[j, :ns] = wav[s0:s0 + ns]
+                    ints[j, 0], ints[j, 3], ints[j, 4] = (ns, h_l,
+                                                          h_l + (c1 - c0))
+                    offsets[j] = s0
+                    s.count(real_windows=count)
+                ctx = np.zeros((B, 2, ctx_n), np.int16)
+                ctx[:, 0], ctx[:, 1] = pos_b, neg_b
             # contexts are the same for every segment: encoded once (cache)
-            wavs, _ = self._gather(self._launch(seg, ints, peaks, ctx))
-            for j in range(len(group)):
-                o = offsets[j]
-                span = min(wavs.shape[-1], out_len - o)
-                den_full[o:o + span] += wavs[j, 0, :span]
-                mix_full[o:o + span] += wavs[j, 1, :span]
+            launched = self._launch(seg, ints, peaks, ctx, seq)
+            with spans.span("enhance.materialize", id=seq):
+                wavs, _ = self._gather(launched)
+                for j in range(len(group)):
+                    o = offsets[j]
+                    span = min(wavs.shape[-1], out_len - o)
+                    den_full[o:o + span] += wavs[j, 0, :span]
+                    mix_full[o:o + span] += wavs[j, 1, :span]
 
         removed = mix_full - den_full
         snr_est = (np.mean(np.square(den_full))
@@ -412,9 +455,9 @@ class Enhancer:
         for batch in batches:
             q.append(self._dispatch(*batch))
             if len(q) >= depth:
-                yield self._materialize(*q.popleft())
+                yield self._finish(q.popleft())
         while q:
-            yield self._materialize(*q.popleft())
+            yield self._finish(q.popleft())
 
     def enhance(self, mixed: np.ndarray, pos: np.ndarray,
                 neg: np.ndarray) -> Dict[str, np.ndarray]:

@@ -48,13 +48,15 @@ def kernel_kind(name: str) -> str:
 
 def kernel_summary(prof, per: int = 1) -> dict:
     """The kernels of a trace (operator rows repeat their kernels' time;
-    CUPTI's own rows are dropped), most device time first, and per
-    ``per`` calls: the summed kernel time ``busy_ms``, the ``launches``
-    and the ms by kind of kernel."""
+    CUPTI's own rows and the device ranges of ``record_function`` spans
+    are dropped), most device time first, and per ``per`` calls: the
+    summed kernel time ``busy_ms``, the ``launches`` and the ms by kind
+    of kernel."""
     from torch.autograd import DeviceType
 
     rows = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.key not in _CUPTI_ROWS
+            and not getattr(e, "is_user_annotation", False)
             and e.self_device_time_total > 0]
     rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
     kinds = {}

@@ -16,6 +16,13 @@ to the same weights.  The reported loss is the global one.  With the
 model axis the wide kernels hold blocks of their output channels, their
 gradients are local to the block, and the gradient norm sums the blocks
 over the model group.
+
+While the profiler runs or ``spans.recording()`` is on, a step records
+the span ``train.step`` (``utils/spans.py``; ``id`` the step number,
+timed on the parameters' device) holding ``train.batch`` (the banked
+gather and ``make_train_batch``), ``train.forward`` (``train_loss``),
+``train.backward`` and ``train.update`` (the gradients, their all-reduce
+and global norm, the optimizer and the in-place add).
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from nhans_tpu_torch.parallel.mesh import all_reduce_mean
 from nhans_tpu_torch.parallel.sharding_rules import model_shards, shard_model
 from nhans_tpu_torch.train.optim import (Optimizer, make_optimizer,
                                          make_schedule)
+from nhans_tpu_torch.utils import spans
 from nhans_tpu_torch.utils.device import full_float32
 
 
@@ -160,30 +168,37 @@ def make_train_step(cfg: Config, model: NHANSNet, tx: Optimizer,
     noise = cfg.model.ctx_embed_noise > 0.0
     data_group = mesh.data_group if mesh is not None else None
     shards = model_shards(model) if mesh is not None else {}
+    device = next(model.parameters()).device  # the spans' timed stream
 
-    def core(state: TrainState, batch: Dict[str, torch.Tensor],
-             generator: torch.Generator, draws=None
-             ) -> Dict[str, torch.Tensor]:
-        with full_float32():
-            B = batch["clean"].shape[0]
-            rows = None
-            if mesh is not None:
-                rows = (mesh.data_index * B, mesh.data * B)
-            ex = make_train_batch(cfg, batch["clean"], batch["noise_a"],
-                                  batch["noise_b"], batch["clean_len"],
-                                  batch["len_a"], batch["len_b"],
-                                  peaks=batch.get("peaks"), draws=draws,
-                                  generator=generator, rows=rows)
+    def core(state: TrainState, gather, generator: torch.Generator,
+             draws=None) -> Dict[str, torch.Tensor]:
+        """The step on the batch that ``gather()`` returns."""
+        with spans.span("train.step", id=state.step, device=device), \
+                full_float32():
+            with spans.span("train.batch", id=state.step, device=device):
+                batch = gather()
+                B = batch["clean"].shape[0]
+                rows = None
+                if mesh is not None:
+                    rows = (mesh.data_index * B, mesh.data * B)
+                ex = make_train_batch(cfg, batch["clean"], batch["noise_a"],
+                                      batch["noise_b"], batch["clean_len"],
+                                      batch["len_a"], batch["len_b"],
+                                      peaks=batch.get("peaks"), draws=draws,
+                                      generator=generator, rows=rows)
             model.train()
             for p in state.params.values():
                 p.grad = None
             if rows is not None:  # in examples: B utterances x K crops
                 n = ex["mixed"].shape[0]
                 rows = (mesh.data_index * n, mesh.data * n)
-            loss = train_loss(cfg, model, ex, generator if noise else None,
-                              mesh, rows)
-            loss.backward()
-            with torch.no_grad():
+            with spans.span("train.forward", id=state.step, device=device):
+                loss = train_loss(cfg, model, ex,
+                                  generator if noise else None, mesh, rows)
+            with spans.span("train.backward", id=state.step, device=device):
+                loss.backward()
+            with spans.span("train.update", id=state.step, device=device), \
+                    torch.no_grad():
                 grads = {k: (p.grad if p.grad is not None
                              else torch.zeros_like(p))
                          for k, p in state.params.items()}
@@ -198,28 +213,33 @@ def make_train_step(cfg: Config, model: NHANSNet, tx: Optimizer,
                 "grad_norm": gnorm}
 
     if not banked:
-        return core
+        def step(state: TrainState, batch: Dict[str, torch.Tensor],
+                 generator: torch.Generator, draws=None
+                 ) -> Dict[str, torch.Tensor]:
+            return core(state, lambda: batch, generator, draws)
+        return step
 
     def banked_step(state: TrainState, banks: Dict[str, torch.Tensor],
                     idx: Dict[str, torch.Tensor],
                     generator: torch.Generator, draws=None
                     ) -> Dict[str, torch.Tensor]:
-        dev = banks["speech"].device
-        ci, ai, bi = (idx[k].to(dev, torch.int64)
-                      for k in ("clean_idx", "a_idx", "b_idx"))
-        batch = {
-            "clean": banks["speech"].index_select(0, ci),
-            "noise_a": banks["noise"].index_select(0, ai),
-            "noise_b": banks["noise"].index_select(0, bi),
-            "clean_len": banks["speech_len"].index_select(0, ci),
-            "len_a": banks["noise_len"].index_select(0, ai),
-            "len_b": banks["noise_len"].index_select(0, bi),
-            "peaks": torch.stack(
-                [banks["speech_peak"].index_select(0, ci),
-                 banks["noise_peak"].index_select(0, ai),
-                 banks["noise_peak"].index_select(0, bi)], dim=1),
-        }
-        return core(state, batch, generator, draws)
+        def gather():
+            dev = banks["speech"].device
+            ci, ai, bi = (idx[k].to(dev, torch.int64)
+                          for k in ("clean_idx", "a_idx", "b_idx"))
+            return {
+                "clean": banks["speech"].index_select(0, ci),
+                "noise_a": banks["noise"].index_select(0, ai),
+                "noise_b": banks["noise"].index_select(0, bi),
+                "clean_len": banks["speech_len"].index_select(0, ci),
+                "len_a": banks["noise_len"].index_select(0, ai),
+                "len_b": banks["noise_len"].index_select(0, bi),
+                "peaks": torch.stack(
+                    [banks["speech_peak"].index_select(0, ci),
+                     banks["noise_peak"].index_select(0, ai),
+                     banks["noise_peak"].index_select(0, bi)], dim=1),
+            }
+        return core(state, gather, generator, draws)
 
     return banked_step
 

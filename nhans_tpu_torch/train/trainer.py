@@ -10,10 +10,13 @@
   package's Orbax (``train/checkpoint.py``; its optax state mapped for
   this run's ``--alg``).
 * Loss and gradient norm stay on the device until a monitor boundary.
-  On a card each step is also timed by a pair of CUDA events, from
-  before its batch is fetched to after its last kernel, so by the
-  device's clock with the input wait included; the metrics record holds
-  the mean over the monitor window as ``step_device_ms``.
+  Rank 0 records its loop's spans (``utils/spans.py``): ``train.fetch``
+  around the batch fetch, whose host time is the input wait
+  (``input_wait_frac``), inside ``train.iteration``, which runs from
+  before the fetch to after the step's last kernel and on a card is
+  timed by the device's clock; the metrics record holds its mean over
+  the monitor window as ``step_device_ms``.  The ring of spans is
+  drained at each monitor boundary.
 * Every ``eval_every`` steps and at the end, a checkpoint is saved (the
   Orbax step directory the JAX trainer writes, ``train/checkpoint.py``,
   so either package resumes it) and its weights are scored on ``EvalLoader(cfg, limit=eval_utts)``
@@ -29,7 +32,8 @@
   and no eval manifest is read.
 * With ``profile_dir``, a ``torch.profiler`` trace (CPU and, on a card,
   CUDA activities) of steps 10 to 20 is written there as Chrome-trace
-  JSON; a run that ends before step 20 writes what it traced.
+  JSON, the spans of the loop and the step among its events by name; a
+  run that ends before step 20 writes what it traced.
 * Several ranks (``mesh``, ``parallel/``): the global batch of
   ``batch_utts`` utterances is rounded up to a multiple of the data axis
   and each rank feeds its ``local_utts`` (the banked stream's rows of the
@@ -43,9 +47,9 @@
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
-import time
 from typing import Optional
 
 import torch
@@ -66,6 +70,7 @@ from nhans_tpu_torch.train.metrics import MetricsWriter, Monitor
 from nhans_tpu_torch.train.step import (TrainState, create_state,
                                         make_train_step, param_counts,
                                         state_of, step_generator)
+from nhans_tpu_torch.utils import spans
 from nhans_tpu_torch.utils.device import resolve_device
 from nhans_tpu_torch.utils.watchdog import Heartbeat
 
@@ -272,56 +277,45 @@ class Trainer:
             self.decoder = loader.decoder
         self._say(f"wav decoder: {self.decoder}")
         stream = prefetch_to_device(loader, self.device)
-        timed = self.device.type == "cuda" and self.primary
 
         if t.eval_before_training:
             self.save_and_eval()
 
-        # (metrics, input wait, step events): read at monitor boundaries
+        # (metrics, step number) of each step, read with the step's spans
+        # at monitor boundaries
         pending = []
         profiler = None
         self._heartbeat = Heartbeat(name="trainer").start()
         try:
-            while self.tstep < t.batches:
-                if (t.profile_dir and self.primary and self.tstep == 10
-                        and profiler is None):
-                    profiler = self._start_profiler()
-                if profiler is not None and self.tstep >= 20:
-                    self._stop_profiler(profiler)
-                    profiler = None
-                self._beat(f"train step {self.tstep}")
-                events = None
-                if timed:
-                    events = (torch.cuda.Event(enable_timing=True),
-                              torch.cuda.Event(enable_timing=True))
-                    events[0].record(torch.cuda.current_stream(self.device))
-                t_in = time.perf_counter()
-                batch = next(stream)
-                input_wait = time.perf_counter() - t_in
-                gen = step_generator(cfg.data.seed + 17, self.tstep)
-                if self.banked:
-                    metrics = self.step_fn(self.state, banks, batch, gen)
-                else:
-                    metrics = self.step_fn(self.state, batch, gen)
-                if timed:
-                    events[1].record(torch.cuda.current_stream(self.device))
-                self.tstep += 1
-                pending.append((metrics, input_wait, events))
-                if self.tstep % t.train_monitor_every == 0 and self.primary:
-                    if timed:
-                        pending[-1][2][1].synchronize()
-                    first = self.tstep - len(pending) + 1
-                    for i, (m, iw, ev) in enumerate(pending):
-                        values = {"loss": float(m["loss"]),
-                                  "grad_norm": float(m["grad_norm"])}
-                        if ev is not None:
-                            values["step_device_ms"] = ev[0].elapsed_time(
-                                ev[1])
-                        self.monitor.update(first + i, values, iw)
-                if self.tstep % t.train_monitor_every == 0:
-                    pending = []
-                if self.tstep % t.eval_every == 0:
-                    self.save_and_eval(async_eval=t.async_eval)
+            with (spans.recording() if self.primary
+                  else contextlib.nullcontext()):
+                while self.tstep < t.batches:
+                    if (t.profile_dir and self.primary and self.tstep == 10
+                            and profiler is None):
+                        profiler = self._start_profiler()
+                    if profiler is not None and self.tstep >= 20:
+                        self._stop_profiler(profiler)
+                        profiler = None
+                    self._beat(f"train step {self.tstep}")
+                    step = self.tstep
+                    with spans.span("train.iteration", id=step,
+                                    device=self.device):
+                        with spans.span("train.fetch", id=step):
+                            batch = next(stream)
+                        gen = step_generator(cfg.data.seed + 17, step)
+                        if self.banked:
+                            metrics = self.step_fn(self.state, banks, batch,
+                                                   gen)
+                        else:
+                            metrics = self.step_fn(self.state, batch, gen)
+                    self.tstep += 1
+                    pending.append((metrics, step))
+                    if self.tstep % t.train_monitor_every == 0:
+                        if self.primary:
+                            self._monitor(pending)
+                        pending = []
+                    if self.tstep % t.eval_every == 0:
+                        self.save_and_eval(async_eval=t.async_eval)
             if profiler is not None:  # the run ended before step 20
                 self._stop_profiler(profiler)
                 profiler = None
@@ -339,6 +333,23 @@ class Trainer:
                 if self.writer is not None:
                     self.writer.close()
                 self._heartbeat.stop()
+
+    def _monitor(self, pending) -> None:
+        """The monitor window's steps to the monitor: loss and gradient
+        norm, the input wait (``train.fetch``'s host time) and, on a card,
+        ``step_device_ms`` (``train.iteration``'s device time), from the
+        spans drained from the ring."""
+        found = {(s.name, s.id): s for s in spans.drain()
+                 if s.name in ("train.iteration", "train.fetch")}
+        for m, step in pending:
+            values = {"loss": float(m["loss"]),
+                      "grad_norm": float(m["grad_norm"])}
+            whole = found.get(("train.iteration", step))
+            if whole is not None and whole.device_ms is not None:
+                values["step_device_ms"] = whole.device_ms
+            fetch = found.get(("train.fetch", step))
+            self.monitor.update(step + 1, values,
+                                fetch.host_ms / 1e3 if fetch else 0.0)
 
     def _start_profiler(self):
         from torch.profiler import ProfilerActivity, profile

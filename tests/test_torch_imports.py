@@ -41,7 +41,8 @@ def test_every_module_imports_with_jax_blocked():
     # dsp/{spectral,mixing,windowing},
     # ops/{_build,stft_cuda}, nn/{blocks,model},
     # compat/{weights,tf_bundle,tf_import,orbax}, infer/enhance,
-    # utils/{device,wavio,tb_events,watchdog,scoring,pesq_np,native,zstd},
+    # utils/{device,wavio,tb_events,watchdog,scoring,pesq_np,native,zstd,
+    #       spans},
     # cli/{_app,denoiser,separator,train,seeds,evaluate,load_model,
     #      load_denoiser,load_separator},
     # data/{manifest,banks,loader,pipeline},
@@ -49,7 +50,7 @@ def test_every_module_imports_with_jax_blocked():
     # tools/{devtime,profile_serving,profile_training,spectrogram_anatomy,
     #        eval_checkpoints,ckpt_npz,ckpt_average,validate_demo,
     #        train_supervisor}, parallel/{mesh,sharding_rules}
-    assert int(r.stdout.strip()) == 65
+    assert int(r.stdout.strip()) == 66
 
 
 _RUN_BLOCKED = r"""
