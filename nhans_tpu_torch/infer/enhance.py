@@ -1,24 +1,31 @@
 """Whole-utterance enhancement: the port of ``nhans_tpu/infer/enhance.py``.
 
 Peak-normalised waveform -> log-magnitude and raw re/im of the mixture
-(the CUDA spectrogram kernel on the card) -> every 35-frame window through
-the conditional ResNet, with both 200-frame contexts encoded once ->
-residual added to the central frame, amplification cap -> masked iSTFT
-that reuses the mixed phase -> SNR estimate.
+(the CUDA spectrogram kernel on the card) -> the 35-frame window of every
+frame that reaches the output through the conditional ResNet, with both
+200-frame contexts encoded once -> residual added to the central frame,
+amplification cap -> masked iSTFT that reuses the mixed phase -> SNR
+estimate.
 
 Utterances run on the utterance zero-padded to its length bucket and on
 a batch padded to a power of two, exactly as in the JAX package, so that
 the windows of the last frames read the same zero-audio frames and the
-outputs agree.  The JAX package's device-tunnel machinery (packed
-parameters, the int16 output wire) is not carried over: outputs are
-float32, as with the JAX ``Enhancer(out_wire="float32")``.
+outputs agree.  The tower, though, computes only the windows of each
+real row's own frames in its kept range (:func:`kept_windows`): the
+frames past a file's end, the pad rows and ``enhance_long``'s halos are
+masked out of the reconstruction, and in eval mode a window's residual
+depends on that window alone, so skipping them changes no output.  The
+JAX package's device-tunnel machinery (packed parameters, the int16
+output wire) is not carried over: outputs are float32, as with the JAX
+``Enhancer(out_wire="float32")``.
 
 Each batch records spans and counts (``utils/spans.py``) under its
 sequence number while the profiler runs or ``spans.recording()`` is on:
 ``enhance.dispatch`` (host preparation, count ``real_windows``),
 ``enhance.launch`` around ``enhance.contexts`` and ``enhance.run``
-(count ``windows``), then ``enhance.materialize``.  The counts are taken
-only while a span records.
+(counts ``windows``, computed, and ``skipped_windows``: the rest of the
+rows x bucket frames), then ``enhance.materialize``.  The counts are
+taken only while a span records.
 
 Several devices (``devices``, the JAX package's ``Enhancer(mesh=...)``):
 one process keeps a replica of the weights on each and splits the rows
@@ -62,30 +69,52 @@ DEFAULT_BUCKETS_SECONDS = (1, 1.25, 1.5, 1.75, 2, 2.25, 2.5, 2.75, 3,
 
 def window_residuals(model: NHANSNet, logmag: torch.Tensor,
                      emb_a: torch.Tensor, emb_b: torch.Tensor,
-                     window_chunk: int) -> torch.Tensor:
-    """Model residuals [B, F, bins] for every frame's window of
-    ``logmag`` [B, F, bins], the windows gathered ``window_chunk`` at a
-    time from the zero-padded log-magnitude (17 frames before, 17 after)
-    rather than materialised at once.  ``emb_a``/``emb_b`` [B, 512] are
-    the rows' context embeddings."""
+                     window_chunk: int, keep=None) -> torch.Tensor:
+    """Model residuals [B, F, bins] for the frames' windows of ``logmag``
+    [B, F, bins], the windows gathered ``window_chunk`` at a time from the
+    zero-padded log-magnitude (17 frames before, 17 after) rather than
+    materialised at once.  ``emb_a``/``emb_b`` [B, 512] are the rows'
+    context embeddings.
+
+    ``keep``: None computes every frame's window; else an int64 tensor of
+    flat window indices ``b * F + f`` on the logmag's device, the only
+    windows computed, every other residual left 0.  In eval mode a
+    window's residual depends on that window alone, so the kept ones equal
+    the full computation's."""
     W = model.cfg.window_frames
     B, nframes, nfeat = logmag.shape
+    dev = logmag.device
     padded = pad_for_windowing(logmag, W)
     flat_spec = padded.reshape(-1, nfeat)
     fp = nframes + W - 1
-    karange = torch.arange(W, device=logmag.device)
+    karange = torch.arange(W, device=dev)
     nwin = B * nframes
-    out = torch.empty((nwin, nfeat), dtype=logmag.dtype,
-                      device=logmag.device)
-    for start in range(0, nwin, window_chunk):
-        widx = torch.arange(start, min(start + window_chunk, nwin),
-                            device=logmag.device)
+    count = nwin if keep is None else keep.shape[0]
+    out = (torch.empty if keep is None else torch.zeros)(
+        (nwin, nfeat), dtype=logmag.dtype, device=dev)
+    for start in range(0, count, window_chunk):
+        stop = min(start + window_chunk, count)
+        widx = (torch.arange(start, stop, device=dev) if keep is None
+                else keep[start:stop])
         b = widx // nframes
         rows = b * fp + widx % nframes
         wchunk = flat_spec[rows[:, None] + karange[None, :]]
-        out[start:start + len(widx)] = model(wchunk, emb_a=emb_a[b],
-                                             emb_b=emb_b[b])
+        out.index_copy_(0, widx, model(wchunk, emb_a=emb_a[b],
+                                       emb_b=emb_b[b]))
     return out.reshape(B, nframes, nfeat)
+
+
+def kept_windows(ints: np.ndarray, nframes: int, frame_length: int,
+                 frame_step: int) -> np.ndarray:
+    """The flat indices ``b * nframes + f`` of the windows that reach the
+    reconstruction, on the host: frames in [keep_from, min(nf,
+    keep_until)) of each row of ints [B, 5] = (n_mixed, n_pos, n_neg,
+    keep_from, keep_until), nf the row's own frames."""
+    ints = ints.astype(np.int64)
+    nf = 1 + np.maximum(ints[:, 0] - frame_length, 0) // frame_step
+    f = np.arange(nframes)[None, :]
+    return np.flatnonzero((f >= ints[:, 3:4])
+                          & (f < np.minimum(nf, ints[:, 4])[:, None]))
 
 
 class Enhancer:
@@ -179,11 +208,15 @@ class Enhancer:
     @torch.inference_mode()
     @full_float32()
     def _run(self, mixed: np.ndarray, ints: np.ndarray, peaks: np.ndarray,
-             emb_a: torch.Tensor, emb_b: torch.Tensor, shard: int = 0):
+             emb_a: torch.Tensor, emb_b: torch.Tensor, keep: np.ndarray,
+             shard: int = 0):
         """One batch on device ``shard``.  mixed [B, L] int16 raw samples;
         ints [B, 5] = (n_mixed, n_pos, n_neg, keep_from, keep_until);
         peaks [B, 3] whole-file peaks.  Only frames in
-        [keep_from, min(keep_until, nf)) reach the reconstruction.
+        [keep_from, min(keep_until, nf)) reach the reconstruction, and only
+        their windows, ``keep`` (:func:`kept_windows` of ``ints``), go
+        through the tower; the spectrogram, iSTFT and SNR estimate run on
+        the whole bucket.  Nothing here reads the device back.
         Returns wavs [B, 2, L'] (denoised, mixed_processed) and
         meta [B, 3] (snr_est, n_out, cap_clip_frac), still on the device."""
         a, m = self.cfg.audio, self.cfg.model
@@ -191,17 +224,16 @@ class Enhancer:
         dev = self.devices[shard]
         x = (self._tensor(mixed, dev).to(torch.float32)
              / (self._tensor(peaks, dev)[:, 0:1] + 1e-6))
-        ints_t = self._tensor(ints.astype(np.int64), dev)
+        n_mixed = self._tensor(ints[:, 0].astype(np.int64), dev)
         logmag, s_re, s_im = sp.spectrogram_reim(x, fl, fs, a.log_eps)
-        nframes = logmag.shape[1]
-        n_mixed, keep_from, keep_until = ints_t[:, 0], ints_t[:, 3], ints_t[:, 4]
+        B, nframes = logmag.shape[:2]
         nf = 1 + torch.clamp(n_mixed - fl, min=0) // fs
-        far = torch.arange(nframes, device=dev)[None, :]
-        fmask = ((far < torch.minimum(nf, keep_until)[:, None])
-                 & (far >= keep_from[:, None]))                  # [B, F]
+        keep_t = self._tensor(keep, dev)
+        fmask = (torch.zeros(B * nframes, dtype=torch.bool, device=dev)
+                 .index_fill_(0, keep_t, True).view(B, nframes))  # [B, F]
 
         residuals = window_residuals(self.models[shard], logmag, emb_a,
-                                     emb_b, self.window_chunk)
+                                     emb_b, self.window_chunk, keep=keep_t)
         cap = a.recon_residual_cap
         if cap > 0:
             # amplification cap: inert on healthy outputs, bounds
@@ -264,7 +296,9 @@ class Enhancer:
     def _dispatch(self, mixed_list, pos_list, neg_list):
         """Host preparation and the batch's device work, left running
         asynchronously on the card: (outs, nreal, seq), for
-        :meth:`_finish`.  Span ``enhance.dispatch`` around the padding and
+        :meth:`_finish`.  The power-of-two pad rows keep no frame, so the
+        tower computes none of their windows (their outputs, zeros, are
+        never returned).  Span ``enhance.dispatch`` around the padding and
         context rows, count ``real_windows``: the frames of the real rows
         (not of the power-of-two pad rows)."""
         a = self.cfg.audio
@@ -297,19 +331,24 @@ class Enhancer:
                 for i, w in enumerate(waves):
                     ctx[i, col], ints[i, col + 1], peaks[i, col + 1] = \
                         self._context_row(w, ctx_n)
-            ints[:, 4] = sp.num_frames(bucket, a.frame_length, a.frame_step)
+            ints[:nreal, 4] = sp.num_frames(bucket, a.frame_length,
+                                            a.frame_step)
         return self._launch(mixed, ints, peaks, ctx, seq), nreal, seq
 
     def _launch(self, mixed: np.ndarray, ints: np.ndarray,
                 peaks: np.ndarray, ctx: np.ndarray, seq=None) -> list:
         """The batch's device work, its rows split over the devices in
         contiguous blocks: [(wavs, meta)] per device, still on the
-        devices.  Nothing waits for a device here.  Span
+        devices.  Nothing waits for a device here.  The tower computes
+        only the windows that reach the reconstruction
+        (:func:`kept_windows`, from ``ints`` on the host).  Span
         ``enhance.launch`` around each device's ``enhance.contexts`` and
-        ``enhance.run``, count ``windows``: the rows x frames it
-        computes."""
+        ``enhance.run``, counts ``windows``: the windows the tower
+        computes, and ``skipped_windows``: the rest of its rows x
+        frames."""
         a = self.cfg.audio
         per = mixed.shape[0] // len(self.devices)
+        nframes = sp.num_frames(mixed.shape[1], a.frame_length, a.frame_step)
         outs = []
         with spans.span("enhance.launch", id=seq):
             for i in range(len(self.devices)):
@@ -318,11 +357,13 @@ class Enhancer:
                     emb_a, emb_b = self._encode_contexts(ctx[r], ints[r],
                                                          peaks[r], i)
                 with spans.span("enhance.run", id=seq) as s:
+                    keep = kept_windows(ints[r], nframes, a.frame_length,
+                                        a.frame_step)
                     if s is not spans.OFF:
-                        s.count(windows=per * sp.num_frames(
-                            mixed.shape[1], a.frame_length, a.frame_step))
+                        s.count(windows=len(keep),
+                                skipped_windows=per * nframes - len(keep))
                     outs.append(self._run(mixed[r], ints[r], peaks[r],
-                                          emb_a, emb_b, i))
+                                          emb_a, emb_b, keep, i))
         return outs
 
     @staticmethod
@@ -382,9 +423,12 @@ class Enhancer:
         linear, so the segments' waveforms summed at their offsets give the
         unsegmented result up to float addition order.  Edge segments get
         no halo at the utterance's ends, which keeps the zero-padded first
-        and last windows.  Each group of segments records the spans of a
-        batch (``_dispatch``); its ``real_windows`` are the frames of its
-        segments, halos included, not of its empty rows."""
+        and last windows.  The tower computes only the core frames'
+        windows: the halos and the empty rows of the last group keep no
+        frame, and only their spectrogram and iSTFT run.  Each group of
+        segments records the spans of a batch (``_dispatch``); its
+        ``real_windows`` are its segments' core frames, which sum to the
+        utterance's frames."""
         a = self.cfg.audio
         fl, fs = a.frame_length, a.frame_step
         H = pad_amounts(self.cfg.model.window_frames)[0]  # 17
@@ -427,7 +471,7 @@ class Enhancer:
                     ints[j, 0], ints[j, 3], ints[j, 4] = (ns, h_l,
                                                           h_l + (c1 - c0))
                     offsets[j] = s0
-                    s.count(real_windows=count)
+                    s.count(real_windows=c1 - c0)
                 ctx = np.zeros((B, 2, ctx_n), np.int16)
                 ctx[:, 0], ctx[:, 1] = pos_b, neg_b
             # contexts are the same for every segment: encoded once (cache)

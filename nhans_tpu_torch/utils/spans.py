@@ -27,7 +27,8 @@ sequence number as ``id``: ``enhance.dispatch`` (host preparation, count
 ``real_windows``: the frames of the real rows), ``enhance.launch`` (the
 enqueue of the batch's device work) around ``enhance.contexts`` (the
 context embeddings, from the cache or encoded) and ``enhance.run``
-(count ``windows``: the rows x frames computed), and
+(counts ``windows``: the windows the tower computes, and
+``skipped_windows``: the rest of the rows x bucket frames), and
 ``enhance.materialize`` (read-back and slicing).  The train step
 (``train/step.py``) records ``train.step`` (``id`` the step number, on
 the parameters' device) around ``train.batch``, ``train.forward``,

@@ -4,8 +4,9 @@ update_ms, train_idle_update_pct}.py) on a stub trace and synthetic spans,
 with exact values; without their traced_* fact, or against a program
 without the recorder, they read None.  Last, serve_pad_pct on the folder
 cell's traced batches, served on the CPU by the engine (its model's
-residuals stubbed out: no count depends on them), against the value the
-lengths and the engine's buckets give."""
+residuals stubbed out: no count depends on them): 0, since the engine
+computes no padding window, and its skipped windows the share the lengths
+and the engine's buckets give."""
 
 import sys
 import types
@@ -131,8 +132,10 @@ def test_no_span_of_the_metric_reads_none(name, fact, recorded):
 def test_serve_pad_pct_of_the_folder_cells_traced_batches(monkeypatch):
     """The folder cell's batches in the name order deal_seed 10 draws; the
     traced ones are the second to fourth of a folder (buckets 7, 16 and
-    12 s).  The engine serves them on the CPU; the reader's value is the
-    one their lengths and the engine's buckets give."""
+    12 s).  The engine serves them on the CPU and computes only their real
+    windows, so the reader reads 0; the windows it skips are the share of
+    the rows x bucket frames that their lengths and the engine's buckets
+    give."""
     import torch
 
     from nhans_tpu_torch.config import Config
@@ -160,7 +163,8 @@ def test_serve_pad_pct_of_the_folder_cells_traced_batches(monkeypatch):
     want = 100 * (1 - real / computed)
 
     monkeypatch.setattr(enhance, "window_residuals",
-                        lambda model, logmag, *rest: torch.zeros_like(logmag))
+                        lambda model, logmag, *rest, **kw:
+                        torch.zeros_like(logmag))
     cfg = _small()
     from nhans_tpu_torch.nn.model import NHANSNet
     enh = enhance.Enhancer(cfg, NHANSNet(cfg.model).state_dict(),
@@ -180,6 +184,10 @@ def test_serve_pad_pct_of_the_folder_cells_traced_batches(monkeypatch):
         got = read("serve_pad_pct", {"traced_batches": 3},
                    StubTrace(start, end))
     finally:
-        spans.drain()
-    assert got == pytest.approx(want, abs=1e-9)
-    assert 55 < got < 65
+        runs = [s for s in spans.drain() if s.name == "enhance.run"]
+    assert got == 0
+    windows = sum(s.counts["windows"] for s in runs)
+    skipped = sum(s.counts["skipped_windows"] for s in runs)
+    assert windows == real and windows + skipped == computed
+    assert 100 * skipped / computed == pytest.approx(want, abs=1e-9)
+    assert 55 < want < 65

@@ -15,7 +15,10 @@ from nhans_tpu.config import Config as JConfig
 from nhans_tpu.infer.enhance import Enhancer as JEnhancer
 from nhans_tpu_torch.compat.weights import load_npz
 from nhans_tpu_torch.config import Config
-from nhans_tpu_torch.infer.enhance import Enhancer, context_samples
+from nhans_tpu_torch.infer import enhance as enhance_mod
+from nhans_tpu_torch.infer.enhance import (Enhancer, context_samples,
+                                           kept_windows, window_residuals)
+from nhans_tpu_torch.nn.model import NHANSNet
 from tests.make_torch_golden import DENOISER_NPZ, SEPARATOR_NPZ, jax_variables
 
 WAVE_ATOL = 1e-4
@@ -206,3 +209,125 @@ def test_tf32_is_off_only_while_serving(port_denoiser, monkeypatch):
     assert len(seen) >= 2  # the contexts and the windows
     assert set(seen) == {(False, False)}
     assert (cudnn.allow_tf32, matmul.allow_tf32) == (True, True)
+
+
+# ---------------------------------------------------------------------- #
+# the tower computes only the windows that reach the reconstruction
+# ---------------------------------------------------------------------- #
+
+def _narrow_model(seed=0):
+    """The narrow model of the span tests with every weight drawn from the
+    seed (its init zeroes the last layer, which would make every residual
+    0), in eval mode."""
+    from tests.test_torch_spans import _small
+
+    cfg = _small()
+    g = torch.Generator().manual_seed(seed)
+    state = {k: (torch.rand(v.shape, generator=g) + 0.5
+                 if k.endswith("pop_variance")
+                 else torch.randn(v.shape, generator=g) * 0.2)
+             for k, v in NHANSNet(cfg.model).state_dict().items()}
+    model = NHANSNet(cfg.model)
+    model.load_state_dict(state)
+    return cfg, state, model.eval()
+
+
+def _count_windows(model, monkeypatch):
+    """The windows of each main-tower call of ``model``, in order (the
+    context encoder's calls pass no windows)."""
+    calls = []
+    forward = model.forward
+
+    def counting(mixed, *args, **kwargs):
+        if mixed is not None:
+            calls.append(mixed.shape[0])
+        return forward(mixed, *args, **kwargs)
+
+    monkeypatch.setattr(model, "forward", counting)
+    return calls
+
+
+@pytest.mark.parametrize("window_chunk,keep_until", [
+    (7, (20, 20, 16)),      # several chunks of 7 and a tail of 3
+    (64, (20, 20, 16)),     # one chunk
+    (7, (0, 0, 0)),         # no window: the model is not called
+], ids=["chunks_and_tail", "one_chunk", "empty"])
+def test_window_residuals_at_kept_windows(window_chunk, keep_until,
+                                          monkeypatch):
+    """Rows of 20 frames (full), 13 frames (ragged) and frames 4 to 15:
+    the residuals with ``keep`` equal the full computation's at the kept
+    windows and are exactly 0 elsewhere; the model sees only those."""
+    cfg, _, model = _narrow_model()
+    a = cfg.audio
+    B, F = 3, 20
+    g = torch.Generator().manual_seed(1)
+    logmag = torch.randn((B, F, cfg.model.num_features), generator=g)
+    emb_a, emb_b = (torch.randn((B, cfg.model.embedding_dim), generator=g)
+                    for _ in range(2))
+    n_mixed = [a.frame_length + (n - 1) * a.frame_step for n in (20, 13, 20)]
+    ints = np.array([[n, 0, 0, k0, k1] for n, k0, k1
+                     in zip(n_mixed, (0, 0, 4), keep_until)], np.int32)
+    keep = kept_windows(ints, F, a.frame_length, a.frame_step)
+    mask = np.zeros((B, F), bool)
+    mask.reshape(-1)[keep] = True
+    assert mask.sum() == sum(max(0, min(n, k1) - k0) for n, k0, k1
+                             in zip((20, 13, 20), (0, 0, 4), keep_until))
+    with torch.no_grad():
+        full = window_residuals(model, logmag, emb_a, emb_b, 64).numpy()
+        calls = _count_windows(model, monkeypatch)
+        got = window_residuals(model, logmag, emb_a, emb_b, window_chunk,
+                               keep=torch.from_numpy(keep)).numpy()
+    assert np.abs(full[mask]).max(initial=1.0) > 1e-2  # not a zero model
+    np.testing.assert_allclose(got[mask], full[mask], atol=1e-6, rtol=0)
+    assert not got[~mask].any()
+    n = len(keep)
+    assert calls == [window_chunk] * (n // window_chunk) + (
+        [n % window_chunk] if n % window_chunk else [])
+
+
+def test_a_batch_of_three_padded_to_four_computes_its_89_windows(
+        monkeypatch):
+    """Lengths 4800, 7200 and 3200 samples (28, 43 and 18 frames) on the
+    0.5 s bucket (48 frames), padded to 4 rows: the tower runs on the 89
+    real windows alone, in chunks of 64, and the outputs equal those of
+    the tower run on all 4 x 48."""
+    cfg, state, _ = _narrow_model()
+    enh = Enhancer(cfg, state, window_chunk=64,
+                   buckets_seconds=(0.5, 1.0), device="cpu")
+    rng = np.random.default_rng(0)
+    mixed = [rng.standard_normal(n) * 2000 for n in (4800, 7200, 3200)]
+    pos, neg = rng.standard_normal(3000) * 700, rng.standard_normal(9000) * 1500
+    calls = _count_windows(enh.model, monkeypatch)
+    got = enh.enhance_batch(mixed, [pos] * 3, [neg] * 3)
+    assert calls == [64, 25]
+    monkeypatch.setattr(enhance_mod, "window_residuals",
+                        lambda *args, keep: window_residuals(*args))
+    calls.clear()
+    every = enh.enhance_batch(mixed, [pos] * 3, [neg] * 3)
+    assert calls == [64, 64, 64]
+    assert np.abs(got["removed"][1]).max() > 0.1  # the tower did something
+    for key in ("denoised", "mixed_processed", "removed"):
+        for g_, e in zip(got[key], every[key]):
+            np.testing.assert_allclose(g_, e, atol=1e-5, rtol=0, err_msg=key)
+    np.testing.assert_allclose(got["snr_est"], every["snr_est"], rtol=1e-5)
+    np.testing.assert_allclose(got["cap_clip_frac"], every["cap_clip_frac"],
+                               atol=1e-6, rtol=0)
+
+
+def test_a_shard_of_pad_rows_computes_no_window(monkeypatch):
+    """One utterance over two devices: the second shard holds only the pad
+    row, so its tower runs on no window, and the result is the one-device
+    result."""
+    cfg, state, _ = _narrow_model()
+    kw = dict(window_chunk=64, buckets_seconds=(0.5,))
+    one = Enhancer(cfg, state, device="cpu", **kw)
+    two = Enhancer(cfg, state, devices=["cpu", "cpu"], **kw)
+    (mixed,), pos, neg = _signals(12, [0.4])
+    calls = [_count_windows(m, monkeypatch) for m in two.models]
+    got = two.enhance(mixed, pos, neg)
+    assert calls == [[cfg.audio.num_frames(len(mixed))], []]
+    ref = one.enhance(mixed, pos, neg)
+    for key in ("denoised", "mixed_processed", "removed"):
+        np.testing.assert_allclose(got[key], ref[key], atol=1e-6, rtol=0,
+                                   err_msg=key)
+    np.testing.assert_allclose(got["snr_est"], ref["snr_est"], rtol=1e-6)

@@ -207,7 +207,8 @@ def _noise(rng, n, scale=2000.0):
 def test_a_batch_of_three_padded_to_four_counts_its_windows():
     """Lengths 4800, 7200 and 3200 samples: 28, 43 and 18 frames of
     400 samples every 160, 89 real; the 0.5 s bucket (8000 samples, 48
-    frames) times 4 rows computes 192."""
+    frames) times 4 rows holds 192 windows, of which the tower computes
+    the 89 real ones and skips 103."""
     enh = _enhancer()
     rng = np.random.default_rng(0)
     mixed = [_noise(rng, n) for n in (4800, 7200, 3200)]
@@ -222,7 +223,7 @@ def test_a_batch_of_three_padded_to_four_counts_its_windows():
         "enhance.run", "enhance.materialize"]
     dispatch, launch, contexts, run, materialize = first
     assert dispatch.counts == {"real_windows": 28 + 43 + 18}
-    assert run.counts == {"windows": 4 * 48}
+    assert run.counts == {"windows": 89, "skipped_windows": 4 * 48 - 89}
     assert contexts.counts == {}
     assert dispatch.parent is None and materialize.parent is None
     assert launch.parent is None
@@ -230,7 +231,8 @@ def test_a_batch_of_three_padded_to_four_counts_its_windows():
     # one row, its own 28 frames on the 0.5 s bucket
     second = {s.name: s for s in got if s.id == 2}
     assert second["enhance.dispatch"].counts == {"real_windows": 28}
-    assert second["enhance.run"].counts == {"windows": 48}
+    assert second["enhance.run"].counts == {"windows": 28,
+                                            "skipped_windows": 20}
     with spans.recording():
         enh.enhance_batch(mixed[1:2], [pos], [neg])
     third = {s.name: s for s in spans.drain()}
@@ -243,8 +245,9 @@ def test_enhance_long_counts_the_frames_of_its_segments():
     """2 s (198 frames) in 0.5 s segments (48 frames, 4-frame halos, cores
     of 40): cores at frames 0, 40, 80, 120, 160; groups of 4 rows.  The
     first group's segments hold 44, 48, 48 and 48 frames, the second's
-    one row 42 (38 core frames and a halo) and three empty rows; each
-    group computes 4 x 48."""
+    one row 42 (38 core frames and a halo) and three empty rows.  Each
+    group's rows x frames are 4 x 48; the tower computes only the core
+    frames, 160 and 38, and skips the halos and empty rows."""
     enh = _enhancer(buckets=(0.5,))
     rng = np.random.default_rng(1)
     with spans.recording():
@@ -254,9 +257,11 @@ def test_enhance_long_counts_the_frames_of_its_segments():
     got = spans.drain()
     dispatch = [s for s in got if s.name == "enhance.dispatch"]
     run = [s for s in got if s.name == "enhance.run"]
-    assert [s.counts for s in dispatch] == [{"real_windows": 188},
-                                            {"real_windows": 42}]
-    assert [s.counts for s in run] == [{"windows": 192}] * 2
+    assert [s.counts for s in dispatch] == [{"real_windows": 160},
+                                            {"real_windows": 38}]
+    assert [s.counts for s in run] == [
+        {"windows": 160, "skipped_windows": 32},
+        {"windows": 38, "skipped_windows": 154}]
     assert [s.id for s in dispatch] == [s.id for s in run] == [1, 2]
     contexts = [s for s in got if s.name == "enhance.contexts"]
     assert [s.id for s in contexts] == [1, 2]
