@@ -4,9 +4,13 @@
     python3 chip_smoke.py
 
 from the root of a checkout, on a machine with a CUDA card and nvcc.  It
-builds the CUDA kernel from csrc/, holds it against its plain PyTorch
-version at the serving and training shapes, times it by device time, then
-drives the port's two main paths at full width:
+builds the CUDA kernels from csrc/, holds the spectrogram kernel against
+its plain PyTorch version at the serving and training shapes and times it
+by device time; holds the main tower's epilogue kernel
+(csrc/tower_epilogue.cu) against its plain version bit for bit at every
+block's serving shape, the fused tower against the modules on the shipped
+weights, and times the epilogue against its plain version and the
+modules (phase 4b); then drives the port's two main paths at full width:
 
 * serving seeded utterances with the shipped weights
   (docs/quality/*_q5_swa.npz): the denoiser (against the same Enhancer on
@@ -1689,6 +1693,150 @@ def timed_groups(evaluator):
     return log
 
 
+# phase 4b: the main tower's blocks at full width, (C, H, W) of each
+# stage's activation, native geometry, and the windows of a serving call:
+# a chunk of the folder (window_chunk), a ragged tail and one window
+TOWER_STAGES = ((64, 35, 201), (128, 18, 101), (256, 9, 51), (512, 5, 26))
+EPILOGUE_WINDOWS = (2048, 795, 1)
+
+
+def epilogue_tables(N, C, H, W, dev, seed):
+    """A random activation y, the epilogue's tables and a residual, in
+    float32 on ``dev``, as tests/test_torch_epilogue.py makes them."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    tabs = [r(N, C), r(N, C), r(C, H), r(C, W), r(C, scale=0.5),
+            torch.rsqrt(r(C).abs() + 0.5) * r(C), r(C, scale=0.5)]
+    return r(N, C, H, W, scale=2.0), tabs, r(N, C, H, W)
+
+
+def phase4b(dev, cycles_per_ms, smi):
+    """The main tower's epilogue kernel on the card.
+
+    (a) ``ops.tower_epilogue`` against ``tower_epilogue_plain`` at every
+        stage's shape with 2048, 795 and 1 windows, without and with the
+        residual: equal bit for bit.
+    (b) the shipped denoiser's tower fused (inference mode) against its
+        modules (grad on, no parameter needing it) on 2048, 795 and 1
+        windows: max |diff| 0, bit for bit.
+    (c) device time of one block's two epilogues (conv1's, and conv2's
+        with the residual) at a 2048-window chunk: the kernel, its plain
+        version, and the modules' eager passes of the shipped block
+        (Inject with its projections and position MLPs, [residual,]
+        BatchNorm, ReLU); the bound is 5 transfers of the activation at
+        the card's bandwidth.
+    Returns (max |err| over (a), timings by stage)."""
+    import torch
+
+    from nhans_tpu_torch.compat.weights import load_npz
+    from nhans_tpu_torch.config import Config
+    from nhans_tpu_torch.nn.model import NHANSNet
+    from nhans_tpu_torch.ops import tower_epilogue as te
+    from nhans_tpu_torch.tools.devtime import device_ms
+    from tests.make_torch_golden import DENOISER_NPZ
+
+    def bits(x):
+        return x.view(torch.int32)
+
+    # (a)
+    max_err = 0.0
+    for C, H, W in TOWER_STAGES:
+        for N in EPILOGUE_WINDOWS:
+            y, tabs, res = epilogue_tables(N, C, H, W, dev, N + C)
+            errs = []
+            for r in (None, res):
+                before = te.tower_epilogue.launches
+                got = te.tower_epilogue(y, *tabs, residual=r)
+                ref = te.tower_epilogue_plain(y, *tabs, r)
+                check(te.tower_epilogue.launches == before + 1,
+                      f"epilogue [{N}, {C}, {H}, {W}]: launches")
+                check(torch.equal(bits(got), bits(ref)),
+                      f"epilogue [{N}, {C}, {H}, {W}] residual "
+                      f"{r is not None}: not bit for bit the plain version")
+                errs.append((got - ref).abs().max().item())
+                del got, ref
+            max_err = max(max_err, *errs)
+            say(f"[4b epilogue] [{N}, {C}, {H}, {W}]: kernel against plain, "
+                f"bit for bit, max |diff| {errs[0]} without and {errs[1]} "
+                "with the residual")
+            del y, tabs, res
+            torch.cuda.empty_cache()
+
+    # (b)
+    model = NHANSNet(Config.denoiser().model)
+    model.load_state_dict(load_npz(DENOISER_NPZ), strict=True)
+    model = model.to(dev).eval().requires_grad_(False)
+    for N in EPILOGUE_WINDOWS:
+        g = torch.Generator(device=dev).manual_seed(N)
+        x = torch.randn(N, 35, 201, device=dev, generator=g) * 2 - 4
+        ea = torch.randn(N, 512, device=dev, generator=g)
+        eb = torch.randn(N, 512, device=dev, generator=g)
+        before = te.tower_epilogue.launches
+        with torch.inference_mode():
+            fused = model(x, emb_a=ea, emb_b=eb)
+        launches = te.tower_epilogue.launches - before
+        with torch.enable_grad():
+            ref = model(x, emb_a=ea, emb_b=eb)
+        diff = (fused - ref).abs().max().item()
+        check(launches == 2 * len(Config.denoiser().model.main_blocks),
+              f"fused tower, {N} windows: {launches} epilogue launches")
+        check(diff == 0.0 and torch.equal(bits(fused), bits(ref)),
+              f"fused tower, {N} windows: max |diff| {diff} from the modules")
+        say(f"[4b epilogue] shipped denoiser, {N} windows: fused tower "
+            f"against the modules max |diff| {diff} (bit for bit), "
+            f"{launches} epilogue launches")
+        del x, ea, eb, fused, ref
+    torch.cuda.empty_cache()
+
+    # (c)
+    timings = {}
+    N = EPILOGUE_WINDOWS[0]
+    blocks = [getattr(model, f"resblock{2 * i + 2}") for i in range(4)]
+    for (C, H, W), block in zip(TOWER_STAGES, blocks):
+        y, tabs, res = epilogue_tables(N, C, H, W, dev, C)
+        g = torch.Generator(device=dev).manual_seed(C)
+        ea = torch.randn(N, 512, device=dev, generator=g)
+        eb = torch.randn(N, 512, device=dev, generator=g)
+
+        def modules():
+            v = block._mask(torch.relu(block.bn1(block.inject1(y, ea, eb))))
+            del v
+            v = block.inject2(y, ea, eb) + res
+            return block._mask(torch.relu(block.bn_out(v)))
+
+        fns = {"ms": lambda: (te.tower_epilogue(y, *tabs),
+                              te.tower_epilogue(y, *tabs, residual=res)),
+               "plain_ms": lambda: (te.tower_epilogue_plain(y, *tabs),
+                                    te.tower_epilogue_plain(y, *tabs, res)),
+               "library_ms": modules}
+        runs = {k: [] for k in fns}
+        with torch.inference_mode():
+            for key in (*fns, *reversed(list(fns))):
+                runs[key].append(device_ms(fns[key], cycles_per_ms, reps=5))
+        t = {k: float(np.mean([ms for ms, _ in v])) for k, v in runs.items()}
+        check(all(a for _, a in runs["ms"]),
+              f"epilogue [{N}, {C}, {H}, {W}]: the host did not run ahead")
+        nbytes = 5 * N * C * H * W * 4
+        t.update(bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes",
+                 shape=[N, C, H, W])
+        timings[(C, H, W)] = t
+        say(f"[4b epilogue] [{N}, {C}, {H}, {W}], a block's two epilogues, "
+            f"device time, warm: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, modules {t['library_ms']:.4f} ms; "
+            f"bound {t['bound_ms']:.4f} ms ({nbytes / 1e9:.3f} GB), kernel at "
+            f"{100 * t['bound_ms'] / t['ms']:.1f} % of it on {smi}")
+        del y, tabs, res, ea, eb
+        torch.cuda.empty_cache()
+    del model, blocks
+    torch.cuda.empty_cache()
+    return max_err, timings
+
+
 def main() -> int:
     import torch
 
@@ -1701,6 +1849,7 @@ def main() -> int:
     from nhans_tpu_torch.config import Config
     from nhans_tpu_torch.dsp import spectral as sp
     from nhans_tpu_torch.ops import _build, stft_cuda
+    from nhans_tpu_torch.ops.tower_epilogue import tower_epilogue
     from nhans_tpu_torch.tools.devtime import device_ms, sleep_cycles_per_ms
     from tests.make_torch_golden import (DENOISER_NPZ, GOLDEN, GOLDEN_EVAL,
                                          GOLDEN_TRAIN, GOLDEN_TRAIN_BF16,
@@ -1878,6 +2027,18 @@ def main() -> int:
             f"by FFT), kernel at {100 * t['bound_ms'] / t['ms']:.1f} % of it"
             f" on {smi}")
 
+    # -- 4b. the main tower's epilogue kernel ------------------------------
+    _, record = _build.load("tower_epilogue")
+    say(f"[4b build] {os.path.relpath(record['path'], REPO)} in "
+        f"{record['seconds']:.2f} s")
+    for line in record["ptxas"]:
+        say(f"  {line}")
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", line)
+        check(spills is None or spills.groups() == ("0", "0"),
+              f"ptxas reports spills: {line}")
+    epilogue_err, epilogue_timings = phase4b(dev, cycles_per_ms, smi)
+
     # -- 5. end to end, denoiser ---------------------------------------------
     rng = np.random.default_rng(5)
     seconds = (1.3, 3.1, 10.0)
@@ -1889,15 +2050,28 @@ def main() -> int:
     den = load_enhancer(Config.denoiser(), DENOISER_NPZ, device="cuda")
 
     stft_cuda.log_spectrogram_kernel.launches = 0
+    tower_epilogue.launches = 0
+    forwards = []      # each tower forward enters its first block once
+    hook = den.model.resblock1.register_forward_hook(
+        lambda m, i, o: forwards.append(i[0].shape[0]))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = den.enhance_batch(mixed, [pos] * 3, [neg] * 3)
     wall_first = time.perf_counter() - t0
+    hook.remove()
     serving_launches = stft_cuda.log_spectrogram_kernel.launches
+    epilogue_launches = tower_epilogue.launches
+    blocks = len(den.cfg.model.main_blocks)
     say(f"[5 denoiser] main path: {serving_launches} kernel launches "
-        "(contexts [8, 32240] and mixed [4, 160000])")
+        "(contexts [8, 32240] and mixed [4, 160000]); "
+        f"{epilogue_launches} epilogue launches in {len(forwards)} tower "
+        f"forwards of {forwards} windows")
     check(serving_launches == 2,
           f"expected 2 kernel launches, saw {serving_launches}")
+    check(len(forwards) > 0
+          and epilogue_launches == 2 * blocks * len(forwards),
+          f"expected {2 * blocks} epilogue launches in each of "
+          f"{len(forwards)} tower forwards, saw {epilogue_launches}")
     for i, s in enumerate(seconds):
         n = den.cfg.audio.trim_to_whole_frames(len(mixed[i]))
         for key in ("denoised", "mixed_processed", "removed"):
@@ -2818,6 +2992,24 @@ def main() -> int:
                 "launches: the 21 steps of cli.train --dtype bfloat16 "
                 "(phase 14); times: phase 4 at the same shape, as the "
                 "kernel is float32 in every compute dtype")
+    for (C, H, W), t in epilogue_timings.items():
+        kernels.append({
+            "name": f"tower_epilogue (serving, {C}x{H}x{W})",
+            "route": "cuda",
+            "source": "nhans_tpu_torch/csrc/tower_epilogue.cu",
+            "replaces": "nhans_tpu/nn/model.py:153",
+            "launches": epilogue_launches,
+            "max_abs_err": epilogue_err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "shape": t["shape"],
+            "note": (
+                "launches: phase 5's serving call, all blocks; times: phase "
+                "4b, one block's two epilogues (conv1's, conv2's with the "
+                "residual) at a 2048-window chunk; library_ms: the block's "
+                "modules (Inject with its projections and position MLPs, "
+                "BatchNorm, ReLU), the eager passes the kernel replaces; "
+                "max_abs_err: against the plain version over phase 4b (a)")})
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(smi)
     say(json.dumps({"kernels": kernels}))

@@ -280,6 +280,13 @@ class BatchNorm(nn.Module):
         y = (x32 - mean.view(shape)) * inv.view(shape) + self.beta.view(shape)
         return y.to(self.dtype)
 
+    def eval_affine(self):
+        """(mean, inv, beta) of the inference map ``(x - mean) * inv +
+        beta``, float32 [features]: the population statistics and ``inv``
+        computed by the expression the forward uses."""
+        inv = torch.rsqrt(self.pop_variance + self.eps) * self.gamma
+        return self.pop_mean, inv, self.beta
+
     def _global_moments(self, x32: torch.Tensor, dims):
         from torch.distributed.nn.functional import all_reduce
 

@@ -38,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 from nhans_tpu_torch.config import ModelConfig
 from nhans_tpu_torch.nn.blocks import (BatchNorm, Conv, Dense, frozen_stats,
                                        same_pads)
+from nhans_tpu_torch.ops.tower_epilogue import tower_epilogue
 from nhans_tpu_torch.utils.device import to_device
 
 
@@ -137,6 +138,14 @@ class Inject(nn.Module):
         f = self.femb(x.shape[3], x.device).t()[None, :, None, :]
         return x + a + b + t + f
 
+    def tables(self, x: torch.Tensor, emb_a: torch.Tensor,
+               emb_b: torch.Tensor):
+        """What ``forward`` adds to ``x``, unbroadcast: a, b [N, C],
+        t [C, H] and f [C, W], for ``ops.tower_epilogue``."""
+        return (self.proj_a(emb_a), self.proj_b(emb_b),
+                self.temb(x.shape[2], x.device).t().contiguous(),
+                self.femb(x.shape[3], x.device).t().contiguous())
+
 
 class CondResBlock(nn.Module):
     """Residual conv block with conditioning injected after each of its
@@ -150,7 +159,13 @@ class CondResBlock(nn.Module):
     ReLU, so that the boundary taps read the zeros SAME padding gives.
     In inference every BatchNorm is a per-channel affine map, so the
     valid columns equal the native geometry's; in training the batch
-    moments include the dead columns."""
+    moments include the dead columns.
+
+    In inference with grad off, each convolution is followed by one
+    ``ops.tower_epilogue`` (conditioning, ``bn1`` and ReLU; conditioning,
+    the residual, ``bn_out`` and ReLU) in place of the modules, with the
+    same result bit for bit; in training or with grad on, the modules
+    run."""
 
     def __init__(self, in_features: int, features: int, kernel: int,
                  stride: int, embedding_dim: int = 512, hidden: int = 50,
@@ -184,12 +199,29 @@ class CondResBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, emb_a: torch.Tensor,
                 emb_b: torch.Tensor) -> torch.Tensor:
+        if not (self.training or torch.is_grad_enabled()):
+            return self._fused(x, emb_a, emb_b)
         fv, fv1 = self.freq_valid or None, self.freq_out or None
         path1 = self.inject1(self.conv1(x, fv), emb_a, emb_b)
         path1 = self._mask(F.relu(self.bn1(path1)))
         path1 = self.inject2(self.conv2(path1, fv1), emb_a, emb_b)
         path2 = x if self.transform is None else self.transform(x)
         return self._mask(F.relu(self.bn_out(path1 + path2)))
+
+    def _fused(self, x: torch.Tensor, emb_a: torch.Tensor,
+               emb_b: torch.Tensor) -> torch.Tensor:
+        """The inference forward with one epilogue per convolution.  Each
+        activation is dropped as soon as the next one exists, as in the
+        modules' forward, so that no convolution runs beside one more."""
+        fv, fv1 = self.freq_valid or None, self.freq_out or None
+        y = self.conv1(x, fv)
+        y = tower_epilogue(y, *self.inject1.tables(y, emb_a, emb_b),
+                           *self.bn1.eval_affine(), valid=self.freq_out)
+        y = self.conv2(y, fv1)
+        path2 = x if self.transform is None else self.transform(x)
+        return tower_epilogue(y, *self.inject2.tables(y, emb_a, emb_b),
+                              *self.bn_out.eval_affine(), residual=path2,
+                              valid=self.freq_out)
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:

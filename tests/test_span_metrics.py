@@ -191,3 +191,86 @@ def test_serve_pad_pct_of_the_folder_cells_traced_batches(monkeypatch):
     assert windows == real and windows + skipped == computed
     assert 100 * skipped / computed == pytest.approx(want, abs=1e-9)
     assert 55 < want < 65
+
+
+class KernelTrace(StubTrace):
+    """A stub trace whose ``tower_epilogue`` kernels took ``epilogue_s``."""
+
+    def __init__(self, start_ns, end_ns, epilogue_s):
+        super().__init__(start_ns, end_ns)
+        self.epilogue_s = epilogue_s
+
+    def kernel_s(self, fragment):
+        return self.epilogue_s if fragment == "tower_epilogue" else 0.0
+
+
+def _folder_flops():
+    from benchmark import epilogue_bytes, flops
+
+    return flops.window_flops(epilogue_bytes.cell_config("denoiser.folder"))
+
+
+H100 = {"traced_batches": 3, "device_kind": "NVIDIA H100 80GB HBM3",
+        "dtype": "float32", "window_flops": _folder_flops()}
+
+
+def test_epilogue_roofline_reads_the_traced_windows_bytes(recorded):
+    recorded += [_span("enhance.run", 1, 1, 2, windows=1000),
+                 _span("enhance.run", 2, 3, 4, windows=500),
+                 _span("enhance.dispatch", 2, 2, 3, real_windows=500),
+                 _span("enhance.run", 0, -3, -2, windows=999)]
+    trace = KernelTrace(0, 10 * MS, 0.025)
+    got = read("epilogue_roofline.serve", H100, trace)
+    # 5 transfers of 1,734,016 float32 a window, 1,500 windows
+    assert got == pytest.approx(100 * 1500 * 5 * 1734016 * 4
+                                / 3.35e12 / 0.025, rel=1e-12)
+    assert 0 < got < 100
+    # the run's own item size; another tower's widths read nothing
+    assert read("epilogue_roofline.serve", dict(H100, dtype="bfloat16"),
+                trace) == pytest.approx(got / 2, rel=1e-12)
+    assert read("epilogue_roofline.serve",
+                dict(H100, window_flops=H100["window_flops"] + 1),
+                trace) is None
+    assert read("epilogue_roofline.serve", {}, trace) is None
+    assert read("epilogue_roofline.serve", H100, None) is None
+    assert read("epilogue_roofline.serve", dict(H100, device_kind="cpu"),
+                trace) is None
+    # the parent: no such kernel in the trace
+    assert read("epilogue_roofline.serve", H100,
+                KernelTrace(0, 10 * MS, 0.0)) is None
+
+
+def test_epilogue_roofline_without_the_spans_reads_none(recorded,
+                                                        monkeypatch):
+    recorded.append(_span("other", 1, 1, 2))
+    trace = KernelTrace(0, 10 * MS, 0.025)
+    assert read("epilogue_roofline.serve", H100, trace) is None
+    monkeypatch.setitem(sys.modules, "nhans_tpu_torch.utils.spans", None)
+    assert read("epilogue_roofline.serve", H100, trace) is None
+
+
+def test_epilogue_bytes_are_the_ports_block_outputs():
+    """The yardstick's elements per window equal the outputs of the port's
+    eight blocks at full width, and the cell's configuration is the
+    denoiser's."""
+    import torch
+
+    from benchmark import epilogue_bytes
+    from benchmark.serving import port_config
+    from nhans_tpu_torch.nn.model import CondResBlock, NHANSNet
+
+    cfg = epilogue_bytes.cell_config("denoiser.folder")
+    assert cfg["name"] == "nhans-denoiser"
+    model = NHANSNet(port_config(cfg).model)
+    sizes = []
+    for block in model.modules():
+        if isinstance(block, CondResBlock):
+            block.register_forward_hook(
+                lambda m, i, o: sizes.append(o.numel()))
+    with torch.inference_mode():
+        model(torch.zeros(1, 35, 201), emb_a=torch.zeros(1, 512),
+              emb_b=torch.zeros(1, 512))
+    assert len(sizes) == 8
+    assert sum(sizes) == epilogue_bytes.activation_elements(cfg) == 1734016
+    assert epilogue_bytes.window_bytes(cfg, "float32") == 5 * 1734016 * 4
+    assert epilogue_bytes.window_bytes(cfg, "bfloat16") == 5 * 1734016 * 2
