@@ -10,7 +10,10 @@ by device time; holds the main tower's epilogue kernel
 (csrc/tower_epilogue.cu) against its plain version bit for bit at every
 block's serving shape, the fused tower against the modules on the shipped
 weights, and times the epilogue against its plain version and the
-modules (phase 4b); then drives the port's two main paths at full width:
+modules (phase 4b); holds the main tower's convolution kernel
+(csrc/tower_conv.cu) within the float32 bound of the float64 convolution
+at its 16 shapes and times it against cuDNN (phase 4c); then drives the
+port's two main paths at full width:
 
 * serving seeded utterances with the shipped weights
   (docs/quality/*_q5_swa.npz): the denoiser (against the same Enhancer on
@@ -1698,6 +1701,12 @@ def timed_groups(evaluator):
 # a chunk of the folder (window_chunk), a ragged tail and one window
 TOWER_STAGES = ((64, 35, 201), (128, 18, 101), (256, 9, 51), (512, 5, 26))
 EPILOGUE_WINDOWS = (2048, 795, 1)
+# the fused tower (the convolution kernel's sums in their own order)
+# against the modules (cuDNN, TF32 off): max |diff| over the modules'
+# largest residual.  Each convolution's output moves by a few float32
+# roundings (rms 2e-7 to 1e-6 of unit outputs, phase 4c); TF32 in the
+# modules moves the residual by about 1e-3 of its largest.
+TOWER_RTOL = 2e-5
 
 
 def epilogue_tables(N, C, H, W, dev, seed):
@@ -1721,9 +1730,11 @@ def phase4b(dev, cycles_per_ms, smi):
     (a) ``ops.tower_epilogue`` against ``tower_epilogue_plain`` at every
         stage's shape with 2048, 795 and 1 windows, without and with the
         residual: equal bit for bit.
-    (b) the shipped denoiser's tower fused (inference mode) against its
-        modules (grad on, no parameter needing it) on 2048, 795 and 1
-        windows: max |diff| 0, bit for bit.
+    (b) the shipped denoiser's tower fused (inference mode: the epilogue
+        and convolution kernels) against its modules (grad on, no
+        parameter needing it; cuDNN, TF32 off) on 2048, 795 and 1 windows:
+        max |diff| within TOWER_RTOL of the modules' largest residual, and
+        16 launches of each kernel per forward.
     (c) device time of one block's two epilogues (conv1's, and conv2's
         with the residual) at a 2048-window chunk: the kernel, its plain
         version, and the modules' eager passes of the shipped block
@@ -1737,7 +1748,9 @@ def phase4b(dev, cycles_per_ms, smi):
     from nhans_tpu_torch.config import Config
     from nhans_tpu_torch.nn.model import NHANSNet
     from nhans_tpu_torch.ops import tower_epilogue as te
+    from nhans_tpu_torch.ops.tower_conv import tower_conv
     from nhans_tpu_torch.tools.devtime import device_ms
+    from nhans_tpu_torch.utils.device import full_float32
     from tests.make_torch_golden import DENOISER_NPZ
 
     def bits(x):
@@ -1776,20 +1789,25 @@ def phase4b(dev, cycles_per_ms, smi):
         x = torch.randn(N, 35, 201, device=dev, generator=g) * 2 - 4
         ea = torch.randn(N, 512, device=dev, generator=g)
         eb = torch.randn(N, 512, device=dev, generator=g)
-        before = te.tower_epilogue.launches
-        with torch.inference_mode():
+        before = (te.tower_epilogue.launches, tower_conv.launches)
+        with torch.inference_mode(), full_float32():
             fused = model(x, emb_a=ea, emb_b=eb)
-        launches = te.tower_epilogue.launches - before
-        with torch.enable_grad():
+        launches = (te.tower_epilogue.launches - before[0],
+                    tower_conv.launches - before[1])
+        with torch.enable_grad(), full_float32():
             ref = model(x, emb_a=ea, emb_b=eb)
         diff = (fused - ref).abs().max().item()
-        check(launches == 2 * len(Config.denoiser().model.main_blocks),
-              f"fused tower, {N} windows: {launches} epilogue launches")
-        check(diff == 0.0 and torch.equal(bits(fused), bits(ref)),
-              f"fused tower, {N} windows: max |diff| {diff} from the modules")
+        rel = diff / ref.abs().max().item()
+        blocks = len(Config.denoiser().model.main_blocks)
+        check(launches == (2 * blocks, 2 * blocks),
+              f"fused tower, {N} windows: {launches} epilogue and "
+              "convolution launches")
+        check(rel <= TOWER_RTOL, f"fused tower, {N} windows: max |diff| "
+              f"{diff} from the modules, {rel:.3g} of their largest")
         say(f"[4b epilogue] shipped denoiser, {N} windows: fused tower "
-            f"against the modules max |diff| {diff} (bit for bit), "
-            f"{launches} epilogue launches")
+            f"against the modules max |diff| {diff:.4g}, {rel:.3g} of the "
+            f"largest residual; {launches[0]} epilogue and {launches[1]} "
+            "convolution launches")
         del x, ea, eb, fused, ref
     torch.cuda.empty_cache()
 
@@ -1837,6 +1855,183 @@ def phase4b(dev, cycles_per_ms, smi):
     return max_err, timings
 
 
+# phase 4c: the windows at which the tower's convolutions are checked (a
+# folder chunk, a ragged tail, a short call, one window) and timed (a
+# folder chunk and interactive calls of 1, 2.5 and 5 s)
+CONV_CHECK_WINDOWS = (2048, 795, 37, 1)
+CONV_TIME_WINDOWS = (2048, 508, 250, 98)
+
+
+def tower_convs(model_cfg):
+    """The main tower's k x k convolutions at one window: (name, Cin, Cout,
+    k, stride, H, W) of each, H and W its input's."""
+    from nhans_tpu_torch.nn.blocks import same_pads
+
+    convs, cin = [], 1
+    t, f = model_cfg.window_frames, model_cfg.num_features
+    for i, (k, s, c) in enumerate(model_cfg.main_blocks):
+        convs.append((f"resblock{i + 1}.conv1", cin, c, k, s, t, f))
+        t, f = same_pads(t, k, s)[2], same_pads(f, k, s)[2]
+        convs.append((f"resblock{i + 1}.conv2", c, c, k, 1, t, f))
+        cin = c
+    return convs
+
+
+def conv_inputs(N, cin, cout, k, s, H, W, dev, seed):
+    """Random x [N, cin, H, W], w (unit variance of the output), bias
+    (conv2's; conv1 has none), stride and TF-SAME pads, float32."""
+    import torch
+
+    from nhans_tpu_torch.nn.blocks import same_pads
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(N, cin, H, W, generator=g, device=dev)
+    w = torch.randn(cout, cin, k, k, generator=g, device=dev) / (
+        cin * k * k) ** 0.5
+    b = (torch.randn(cout, generator=g, device=dev) * 0.1
+         if s == 1 and cin == cout else None)
+    tl, th, _ = same_pads(H, k, s)
+    fl, fh, _ = same_pads(W, k, s)
+    return x, w, b, (s, s), (fl, fh, tl, th)
+
+
+def conv_gaps(x, w, b, stride, pads, got):
+    """How far ``got`` and cuDNN's float32 convolution (TF32 off) lie from
+    the float64 one: (max |got - exact| over its bound, rms of got's
+    error, rms of cuDNN's).  The bound is the float32 sum's worst case,
+    (K + 1) u (sum |x| |w| + |b|), K = Cin k^2 products, u = 2^-24."""
+    import torch
+    import torch.nn.functional as F
+
+    K = w.shape[1] * w.shape[2] * w.shape[3]
+    xp = F.pad(x, pads)
+    lib = F.conv2d(xp, w, b, stride=stride)
+    xp = xp.double()
+    exact = F.conv2d(xp, w.double(), None if b is None else b.double(),
+                     stride=stride)
+    mag = F.conv2d(xp.abs_(), w.double().abs(),
+                   None if b is None else b.double().abs(), stride=stride)
+    del xp
+    bound = mag.mul_((K + 1) * 2.0 ** -24)
+    over = ((got.double() - exact).abs_() / bound).max().item()
+    rms = ((got.double() - exact).square_().mean().sqrt().item(),
+           (lib.double() - exact).square_().mean().sqrt().item())
+    del exact, bound, lib
+    torch.cuda.empty_cache()
+    return over, rms[0], rms[1]
+
+
+def phase4c(dev, cycles_per_ms, smi):
+    """The main tower's convolution kernel on the card, TF32 off.
+
+    (a) ``ops.tower_conv`` at the 16 convolutions of the shipped tower x
+        2048, 795, 37 and 1 windows: within the float32 sum's worst-case
+        bound of the float64 convolution everywhere, and its rms error at
+        most twice cuDNN's float32 one.
+    (b) device time of each convolution at 2048, 508, 250 and 98 windows:
+        the kernel (with its weight transpose), cuDNN's ``F.conv2d`` on the
+        padded input (``library_ms``, as the modules run it), the plain
+        version (``F.pad`` + ``F.conv2d``, the parent's path), and the
+        bound (the larger of the direct FLOPs at 67 TFLOP/s and the bytes
+        of input, weights and output at 3.35 TB/s); the kernel faster than
+        cuDNN at every one.
+    Returns (the worst error over its bound in (a), timings)."""
+    from nhans_tpu_torch.config import Config
+    from nhans_tpu_torch.utils.device import full_float32
+
+    convs = tower_convs(Config.denoiser().model)
+    with full_float32():
+        return (check_tower_convs(dev, convs),
+                time_tower_convs(dev, cycles_per_ms, smi, convs))
+
+
+def check_tower_convs(dev, convs):
+    """Phase 4c (a); the worst error over its bound."""
+    import torch
+
+    from nhans_tpu_torch.ops import tower_conv as tc
+
+    worst = 0.0
+    for N in CONV_CHECK_WINDOWS:
+        for i, (name, cin, cout, k, s, H, W) in enumerate(convs):
+            x, w, b, stride, pads = conv_inputs(N, cin, cout, k, s, H, W, dev,
+                                                N + i)
+            before = tc.tower_conv.launches
+            got = tc.tower_conv(x, w, b, stride, pads)
+            torch.cuda.synchronize()
+            check(tc.tower_conv.launches == before + 1,
+                  f"tower_conv {name} x{N}: launches")
+            over, rms, rms_lib = conv_gaps(x, w, b, stride, pads, got)
+            worst = max(worst, over)
+            check(over <= 1.0, f"tower_conv {name} x{N}: {over:.3g} times "
+                  "the float32 bound from the float64 convolution")
+            check(rms <= 2 * rms_lib, f"tower_conv {name} x{N}: rms error "
+                  f"{rms:.3g}, cuDNN's {rms_lib:.3g}")
+            if N == CONV_CHECK_WINDOWS[0] or N == 1:
+                say(f"[4c conv] {name} [{N}, {cin}, {H}, {W}] k{k} s{s} -> "
+                    f"{cout}: max error {over:.3g} of the bound, rms "
+                    f"{rms:.3g} (cuDNN {rms_lib:.3g})")
+            del x, w, b, got
+            torch.cuda.empty_cache()
+    return worst
+
+
+def time_tower_convs(dev, cycles_per_ms, smi, convs):
+    """Phase 4c (b); the timings by (convolution, windows)."""
+    import torch
+    import torch.nn.functional as F
+
+    from nhans_tpu_torch.ops import tower_conv as tc
+    from nhans_tpu_torch.tools.devtime import device_ms
+
+    timings = {}
+    for N in CONV_TIME_WINDOWS:
+        for i, (name, cin, cout, k, s, H, W) in enumerate(convs):
+            x, w, b, stride, pads = conv_inputs(N, cin, cout, k, s, H, W, dev,
+                                                i)
+            xp = F.pad(x, pads)
+            fns = {"ms": lambda: tc.tower_conv(x, w, b, stride, pads),
+                   "library_ms": lambda: F.conv2d(xp, w, b, stride=stride),
+                   "plain_ms": lambda: tc.tower_conv_plain(x, w, b, stride,
+                                                           pads)}
+            runs = {key: [] for key in fns}
+            with torch.inference_mode():
+                for key in (*fns, *reversed(list(fns))):
+                    runs[key].append(device_ms(fns[key], cycles_per_ms,
+                                               reps=3, warmup=2))
+            t = {key: float(np.mean([ms for ms, _ in v]))
+                 for key, v in runs.items()}
+            Ho, Wo = (tc.out_size(H, k, s, pads[2], pads[3]),
+                      tc.out_size(W, k, s, pads[0], pads[1]))
+            flops = 2 * N * cout * Ho * Wo * cin * k * k
+            nbytes = 4 * (x.numel() + w.numel() + N * cout * Ho * Wo)
+            bounds = {"flops": flops / PEAK_FP32_FLOPS,
+                      "bytes": nbytes / PEAK_BYTES}
+            by = max(bounds, key=bounds.get)
+            t.update(bound_ms=1e3 * bounds[by], bound_by=by,
+                     shape=[N, cin, H, W, cout, k, s], flops=flops,
+                     bytes=nbytes)
+            timings[(name, N)] = t
+            say(f"[4c conv] {name} x{N} [{cin}->{cout}, {H}x{W}, k{k} s{s}], "
+                f"device time: kernel {t['ms']:.4f} ms, cuDNN "
+                f"{t['library_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+                f"bound {t['bound_ms']:.4f} ms ({by}); kernel at "
+                f"{100 * t['bound_ms'] / t['ms']:.1f} % of it, "
+                f"x{t['library_ms'] / t['ms']:.2f} on cuDNN")
+            check(t["ms"] < t["library_ms"], f"tower_conv {name} x{N}: "
+                  f"kernel {t['ms']:.4f} ms, cuDNN {t['library_ms']:.4f} ms")
+            del x, xp, w, b
+            torch.cuda.empty_cache()
+        total = {key: sum(timings[(c[0], N)][key] for c in convs)
+                 for key in ("ms", "library_ms", "plain_ms", "bound_ms")}
+        say(f"[4c conv] the 16 convolutions at {N} windows: kernel "
+            f"{total['ms']:.3f} ms ({100 * total['bound_ms'] / total['ms']:.1f}"
+            f" % of their bounds), cuDNN {total['library_ms']:.3f} ms, "
+            f"plain {total['plain_ms']:.3f} ms, bound {total['bound_ms']:.3f}"
+            f" ms on {smi}")
+    return timings
+
+
 def main() -> int:
     import torch
 
@@ -1849,6 +2044,7 @@ def main() -> int:
     from nhans_tpu_torch.config import Config
     from nhans_tpu_torch.dsp import spectral as sp
     from nhans_tpu_torch.ops import _build, stft_cuda
+    from nhans_tpu_torch.ops.tower_conv import tower_conv
     from nhans_tpu_torch.ops.tower_epilogue import tower_epilogue
     from nhans_tpu_torch.tools.devtime import device_ms, sleep_cycles_per_ms
     from tests.make_torch_golden import (DENOISER_NPZ, GOLDEN, GOLDEN_EVAL,
@@ -2027,17 +2223,19 @@ def main() -> int:
             f"by FFT), kernel at {100 * t['bound_ms'] / t['ms']:.1f} % of it"
             f" on {smi}")
 
-    # -- 4b. the main tower's epilogue kernel ------------------------------
-    _, record = _build.load("tower_epilogue")
-    say(f"[4b build] {os.path.relpath(record['path'], REPO)} in "
-        f"{record['seconds']:.2f} s")
-    for line in record["ptxas"]:
-        say(f"  {line}")
-        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                           r"loads", line)
-        check(spills is None or spills.groups() == ("0", "0"),
-              f"ptxas reports spills: {line}")
+    # -- 4b, 4c. the main tower's epilogue and convolution kernels ----------
+    for name in ("tower_epilogue", "tower_conv"):
+        _, record = _build.load(name)
+        say(f"[4b build] {os.path.relpath(record['path'], REPO)} in "
+            f"{record['seconds']:.2f} s")
+        for line in record["ptxas"]:
+            say(f"  {line}")
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                               r"spill loads", line)
+            check(spills is None or spills.groups() == ("0", "0"),
+                  f"ptxas reports spills: {line}")
     epilogue_err, epilogue_timings = phase4b(dev, cycles_per_ms, smi)
+    conv_err, conv_timings = phase4c(dev, cycles_per_ms, smi)
 
     # -- 5. end to end, denoiser ---------------------------------------------
     rng = np.random.default_rng(5)
@@ -2050,7 +2248,7 @@ def main() -> int:
     den = load_enhancer(Config.denoiser(), DENOISER_NPZ, device="cuda")
 
     stft_cuda.log_spectrogram_kernel.launches = 0
-    tower_epilogue.launches = 0
+    tower_epilogue.launches = tower_conv.launches = 0
     forwards = []      # each tower forward enters its first block once
     hook = den.model.resblock1.register_forward_hook(
         lambda m, i, o: forwards.append(i[0].shape[0]))
@@ -2061,17 +2259,19 @@ def main() -> int:
     hook.remove()
     serving_launches = stft_cuda.log_spectrogram_kernel.launches
     epilogue_launches = tower_epilogue.launches
+    conv_launches = tower_conv.launches
     blocks = len(den.cfg.model.main_blocks)
     say(f"[5 denoiser] main path: {serving_launches} kernel launches "
         "(contexts [8, 32240] and mixed [4, 160000]); "
-        f"{epilogue_launches} epilogue launches in {len(forwards)} tower "
-        f"forwards of {forwards} windows")
+        f"{epilogue_launches} epilogue and {conv_launches} convolution "
+        f"launches in {len(forwards)} tower forwards of {forwards} windows")
     check(serving_launches == 2,
           f"expected 2 kernel launches, saw {serving_launches}")
-    check(len(forwards) > 0
-          and epilogue_launches == 2 * blocks * len(forwards),
-          f"expected {2 * blocks} epilogue launches in each of "
-          f"{len(forwards)} tower forwards, saw {epilogue_launches}")
+    for what, n in (("epilogue", epilogue_launches),
+                    ("convolution", conv_launches)):
+        check(len(forwards) > 0 and n == 2 * blocks * len(forwards),
+              f"expected {2 * blocks} {what} launches in each of "
+              f"{len(forwards)} tower forwards, saw {n}")
     for i, s in enumerate(seconds):
         n = den.cfg.audio.trim_to_whole_frames(len(mixed[i]))
         for key in ("denoised", "mixed_processed", "removed"):
@@ -3010,6 +3210,23 @@ def main() -> int:
                 "modules (Inject with its projections and position MLPs, "
                 "BatchNorm, ReLU), the eager passes the kernel replaces; "
                 "max_abs_err: against the plain version over phase 4b (a)")})
+    for (name, N), t in conv_timings.items():
+        kernels.append({
+            "name": f"tower_conv (serving, {name}, {N} windows)",
+            "route": "cuda",
+            "source": "nhans_tpu_torch/csrc/tower_conv.cu",
+            "replaces": "cuDNN's float32 convolution (no TPU kernel)",
+            "launches": conv_launches,
+            "max_abs_err": conv_err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "shape": t["shape"],
+            "note": (
+                "launches: phase 5's serving call, all blocks; times: phase "
+                "4c, [N, Cin, H, W, Cout, k, stride]; library_ms: cuDNN's "
+                "F.conv2d on the padded input, TF32 off; plain_ms: F.pad + "
+                "F.conv2d; max_abs_err: the worst error over phase 4c (a)'s "
+                "float32 bound (a ratio, 1 = at the bound)")})
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(smi)
     say(json.dumps({"kernels": kernels}))

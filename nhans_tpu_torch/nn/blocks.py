@@ -170,19 +170,28 @@ class Conv(nn.Module):
         """Hold block ``index`` of ``count`` of the output channels."""
         _shard_weight(self, 0, index, count, group)
 
+    def pads(self, x: torch.Tensor,
+             freq_size: Optional[int] = None) -> Tuple[int, int, int, int]:
+        """The (left, right, top, bottom) zeros ``forward`` pads ``x`` with,
+        in F.pad's order: TF-SAME's, or none for VALID.  ``freq_size``: the
+        true width of a lane-padded frequency axis; SAME then pads it as TF
+        would pad that width (its low pad depends on the size), so that the
+        output grid is the native one."""
+        if self.padding != "SAME":
+            return 0, 0, 0, 0
+        (kh, kw), (sh, sw) = self.kernel_size, self.strides
+        tl, th, _ = same_pads(x.shape[2], kh, sh)
+        fl, fh, _ = same_pads(freq_size or x.shape[3], kw, sw)
+        return fl, fh, tl, th
+
     def forward(self, x: torch.Tensor,
                 freq_size: Optional[int] = None) -> torch.Tensor:
-        """``freq_size``: the true width of a lane-padded frequency axis;
-        SAME then pads it as TF would pad that width (its low pad depends
-        on the size), so that the output grid is the native one."""
+        """``freq_size``: as ``pads`` takes it."""
         dt = self.dtype
         x = x.to(dt)
-        if self.padding == "SAME":
-            (kh, kw), (sh, sw) = self.kernel_size, self.strides
-            tl, th, _ = same_pads(x.shape[2], kh, sh)
-            fl, fh, _ = same_pads(freq_size or x.shape[3], kw, sw)
-            if tl or th or fl or fh:
-                x = F.pad(x, (fl, fh, tl, th))
+        pads = self.pads(x, freq_size)
+        if any(pads):
+            x = F.pad(x, pads)
         b = None if self.b is None else self.b.to(dt)
         w = self.w.to(dt)
         if self.shard is not None:

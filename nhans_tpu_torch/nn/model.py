@@ -38,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 from nhans_tpu_torch.config import ModelConfig
 from nhans_tpu_torch.nn.blocks import (BatchNorm, Conv, Dense, frozen_stats,
                                        same_pads)
+from nhans_tpu_torch.ops.tower_conv import KERNEL_SIZES, tower_conv
 from nhans_tpu_torch.ops.tower_epilogue import tower_epilogue
 from nhans_tpu_torch.utils.device import to_device
 
@@ -164,8 +165,11 @@ class CondResBlock(nn.Module):
     In inference with grad off, each convolution is followed by one
     ``ops.tower_epilogue`` (conditioning, ``bn1`` and ReLU; conditioning,
     the residual, ``bn_out`` and ReLU) in place of the modules, with the
-    same result bit for bit; in training or with grad on, the modules
-    run."""
+    same result bit for bit; in float32 compute ``conv1`` and ``conv2``
+    run through ``ops.tower_conv`` (``_conv`` says when), whose kernel sums
+    in another order than cuDNN and whose plain version, which a CPU
+    tensor takes, is ``Conv.forward``.  In training or with grad on, the
+    modules run."""
 
     def __init__(self, in_features: int, features: int, kernel: int,
                  stride: int, embedding_dim: int = 512, hidden: int = 50,
@@ -214,14 +218,29 @@ class CondResBlock(nn.Module):
         activation is dropped as soon as the next one exists, as in the
         modules' forward, so that no convolution runs beside one more."""
         fv, fv1 = self.freq_valid or None, self.freq_out or None
-        y = self.conv1(x, fv)
+        y = _conv(self.conv1, x, fv)
         y = tower_epilogue(y, *self.inject1.tables(y, emb_a, emb_b),
                            *self.bn1.eval_affine(), valid=self.freq_out)
-        y = self.conv2(y, fv1)
+        y = _conv(self.conv2, y, fv1)
         path2 = x if self.transform is None else self.transform(x)
         return tower_epilogue(y, *self.inject2.tables(y, emb_a, emb_b),
                               *self.bn_out.eval_affine(), residual=path2,
                               valid=self.freq_out)
+
+
+def _conv(conv: Conv, x: torch.Tensor,
+          freq_size: Optional[int]) -> torch.Tensor:
+    """``conv(x, freq_size)``, through ``ops.tower_conv`` where the input
+    and the compute dtype are float32, ``conv`` holds all its output
+    channels and its kernel is one the kernel takes (every block's of the
+    published tower)."""
+    kh, kw = conv.kernel_size
+    if (x.dtype != torch.float32 or conv.dtype != torch.float32
+            or conv.shard is not None or kh != kw
+            or kh not in KERNEL_SIZES):
+        return conv(x, freq_size)
+    return tower_conv(x, conv.w, conv.b, conv.strides,
+                      conv.pads(x, freq_size))
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:

@@ -21,6 +21,7 @@ _CUPTI_ROWS = ("Command Buffer Full", "Buffer Flush", "Activity Buffer Request")
 # kernel name fragments by kind, first match wins
 _KINDS = (("spectrogram kernel", ("log_spectrogram",)),
           ("tower epilogue kernel", ("tower_epilogue",)),
+          ("tower convolution kernel", ("tower_conv",)),
           ("convolution (cuDNN)", ("cudnn", "xmma", "implicit", "winograd",
                                    "fft", "conv", "sm90_", "cutlass",
                                    "gemm", "dgrad", "wgrad", "complex",

@@ -274,3 +274,72 @@ def test_epilogue_bytes_are_the_ports_block_outputs():
     assert sum(sizes) == epilogue_bytes.activation_elements(cfg) == 1734016
     assert epilogue_bytes.window_bytes(cfg, "float32") == 5 * 1734016 * 4
     assert epilogue_bytes.window_bytes(cfg, "bfloat16") == 5 * 1734016 * 2
+
+
+class ConvTrace(StubTrace):
+    """A stub trace whose ``tower_conv`` kernels took ``conv_s``."""
+
+    def __init__(self, start_ns, end_ns, conv_s):
+        super().__init__(start_ns, end_ns)
+        self.conv_s = conv_s
+
+    def kernel_s(self, fragment):
+        return self.conv_s if fragment == "tower_conv" else 0.0
+
+
+def test_conv_roofline_reads_the_traced_windows_flops(recorded):
+    recorded += [_span("enhance.run", 1, 1, 2, windows=1000),
+                 _span("enhance.run", 2, 3, 4, windows=500),
+                 _span("enhance.run", 0, -3, -2, windows=999)]
+    trace = ConvTrace(0, 10 * MS, 0.5)
+    got = read("conv_roofline.serve", H100, trace)
+    # 10,158,790,656 direct operations a window, 1,500 windows
+    assert got == pytest.approx(100 * 1500 * 10158790656 / 67e12 / 0.5,
+                                rel=1e-12)
+    assert 0 < got < 100
+    # only the float32 tower of the cell's widths, on a known card
+    assert read("conv_roofline.serve", dict(H100, dtype="bfloat16"),
+                trace) is None
+    assert read("conv_roofline.serve",
+                dict(H100, window_flops=H100["window_flops"] + 1),
+                trace) is None
+    assert read("conv_roofline.serve", {}, trace) is None
+    assert read("conv_roofline.serve", H100, None) is None
+    assert read("conv_roofline.serve", dict(H100, device_kind="cpu"),
+                trace) is None
+    # the parent: no such kernel in the trace
+    assert read("conv_roofline.serve", H100,
+                ConvTrace(0, 10 * MS, 0.0)) is None
+    # without the spans, or against a program without the recorder
+    recorded.clear()
+    assert read("conv_roofline.serve", H100, trace) is None
+
+
+def test_window_conv_flops_are_the_ports_tower_convolutions(monkeypatch):
+    """The yardstick's operations per window equal two per multiply-add of
+    the port's sixteen k x k convolutions at full width, counted from the
+    shapes a forward of the model hands them."""
+    import torch
+
+    from benchmark import epilogue_bytes
+    from benchmark.conv_flops import window_conv_flops
+    from benchmark.serving import port_config
+    from nhans_tpu_torch.nn import model as nn_model
+    from nhans_tpu_torch.nn.model import NHANSNet
+
+    cfg = epilogue_bytes.cell_config("denoiser.folder")
+    model = NHANSNet(port_config(cfg).model)
+    macs = []
+    real = nn_model.tower_conv
+
+    def counting(x, w, b, stride, pads):
+        y = real(x, w, b, stride, pads)
+        macs.append(y.numel() * w[0].numel())
+        return y
+
+    monkeypatch.setattr(nn_model, "tower_conv", counting)
+    with torch.inference_mode():
+        model(torch.zeros(1, 35, 201), emb_a=torch.zeros(1, 512),
+              emb_b=torch.zeros(1, 512))
+    assert len(macs) == 16
+    assert window_conv_flops(cfg) == 2 * sum(macs) == 10158790656

@@ -326,7 +326,11 @@ def test_training_run_at_narrow_width(narrow, root_runs, run):
 
 def _analytic_flops(model, run):
     """2 x the multiply-adds of every Conv and Dense call in ``run()``,
-    from the shapes of their weights and outputs."""
+    from the shapes of their weights and outputs: the modules' calls, and
+    the main tower's convolutions that the inference forward hands to
+    ``ops.tower_conv`` instead."""
+    from nhans_tpu_torch.nn import model as nn_model
+
     total = [0]
 
     def conv(mod, inputs, y):
@@ -337,11 +341,20 @@ def _analytic_flops(model, run):
         n_in, n_out = mod.w.shape
         total[0] += 2 * (inputs[0].numel() // n_in) * n_in * n_out
 
+    real = nn_model.tower_conv
+
+    def tower_conv(x, w, *args):
+        y = real(x, w, *args)
+        total[0] += 2 * y.numel() * w[0].numel()
+        return y
+
     hooks = [m.register_forward_hook(conv if isinstance(m, Conv) else dense)
              for m in model.modules() if isinstance(m, (Conv, Dense))]
+    nn_model.tower_conv = tower_conv
     try:
         run()
     finally:
+        nn_model.tower_conv = real
         for h in hooks:
             h.remove()
     return total[0]

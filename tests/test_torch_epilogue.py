@@ -10,7 +10,8 @@ wrapper's dispatch and checks; and a numpy emulation of the CUDA kernel
 rounding) against the plain version, bit for bit.  On the card (marker
 ``gpu``): the kernel against the plain version at every block's real
 shape and on non-finite values, and the fused tower against the modules
-on the shipped weights.  The machine with the card has no JAX: this module
+on the shipped weights (within a bound: its convolutions are
+ops.tower_conv's).  The machine with the card has no JAX: this module
 imports none, and the card runs it with
 ``python -m pytest --noconftest -m gpu tests/test_torch_epilogue.py``.
 """
@@ -321,7 +322,10 @@ def test_kernel_keeps_non_finite_values_as_plain_on_card(dtype):
 @pytest.mark.parametrize("windows", [2048, 795, 1])
 def test_fused_tower_equals_the_modules_on_card(windows):
     """The shipped denoiser's residuals, the fused tower against the
-    modules (grad on, no parameter needing it), max |diff| 0."""
+    modules (grad on, no parameter needing it, TF32 off): in float32 the
+    fused tower's convolutions are ops.tower_conv's, whose sums run in
+    another order than cuDNN's, so max |diff| within chip_smoke's
+    TOWER_RTOL of the modules' largest residual."""
     _cuda()
     from nhans_tpu_torch.compat.weights import load_npz
 
@@ -337,5 +341,7 @@ def test_fused_tower_equals_the_modules_on_card(windows):
         fused = model(x, emb_a=ea, emb_b=eb)
     with torch.enable_grad():
         ref = model(x, emb_a=ea, emb_b=eb)
-    assert (fused - ref).abs().max().item() == 0.0
-    assert torch.equal(_bits(fused), _bits(ref))
+    from chip_smoke import TOWER_RTOL
+
+    diff = (fused - ref).abs().max().item()
+    assert diff <= TOWER_RTOL * ref.abs().max().item()
