@@ -63,12 +63,6 @@ port's two main paths at full width:
   directories and the averaged directory served; ``tools/validate_demo``
   on a synthetic DEMO_N-HANS tree against the plain spectrogram; and
   ``tools/train_supervisor`` in two chunks against phase 9's run;
-* the benchmark harness (phase 17): ``python -m nhans_tpu_torch.bench``'s
-  three modes in this process at full width (serving RTF of 16 x 10 s,
-  training steps streamed and banked in float32 and bfloat16 with their
-  FLOPs against phase 9's count and ``mfu_est``, and the single-call
-  suite on a seeded stand-in reference tree), each result line checked
-  and the kernel's calls on each path counted;
 * the installed package (phase 18): ``pip install --no-deps
   --no-build-isolation --target T`` of a copy of the sources, then
   ``T/bin/nhans_torch_denoiser`` with a temporary HOME and working
@@ -192,13 +186,6 @@ FREQ_PAD = 256
 # phase 16: served waveforms of the TF-converted weights against the same
 # weights from the .npz (phase 7): the same values through the same code
 CONVERTED_ATOL = 1e-6
-
-# phase 17: the harness's iterations per mode and the stand-in tree's
-# mixtures (s)
-INFER_ITERS = 2
-TRAIN_ITERS = 3
-SUITE_ITERS = 2
-SUITE_SECONDS = 6.0
 
 # phase 18: the installed copy serving phase 7's input against phase 7's
 # output (the same code and weights on the same card); the phase of
@@ -1083,103 +1070,6 @@ def phase16(tmp, corpus, smi, banked_losses, p7, phase5):
         + f") on {smi}")
     return dict(conv_launches=conv_launches, conv_shapes=conv_shapes,
                 vd_launches=vd_launches, vd_shapes=vd_shapes, wall=wall)
-
-
-def suite_shapes():
-    """The spectrogram kernel's calls, in order, of ``bench --mode suite
-    --iters 2`` on the stand-in tree of SUITE_SECONDS mixtures: each
-    Enhancer encodes a set of contexts once (cached after), then runs the
-    mixture on its bucket once a call.  Single calls are [1, 96000] and
-    the seven DEMO mixtures [8, 96000] (a batch of 8) on the 6 s bucket;
-    five minutes on 32 s segments are 10 segments, 2 groups of 8 rows on
-    the 32 s bucket, in a warm and a timed call."""
-    def single(rows, length):
-        return ([((2 * rows, 32240), False)]
-                + [((rows, length), True)] * (1 + SUITE_ITERS))
-    return (single(1, 96000) + single(1, 96000) + single(8, 96000)
-            + single(1, 96000) + [((16, 32240), False)]
-            + [((8, 512000), True)] * 4)
-
-
-def phase17(tmp, smi, stft_cuda, step_flops):
-    """Phase 17: the benchmark harness (``python -m nhans_tpu_torch.bench``)
-    in this process at full width: ``--mode infer --iters 2`` (16 x 10 s,
-    the synthetic batch), ``--mode train --iters 3`` streamed and
-    ``--banked`` in float32 and bfloat16, and ``--mode suite --iters 2``
-    on a seeded stand-in reference tree (``write_reference_tree``).  Each
-    run's last line is parsed: its values finite and positive, ``mfu_est``
-    in (0, 1], ``flops_per_step`` equal to phase 9's count, the card named;
-    the kernel's launches and shapes are those of each path."""
-    import torch
-
-    from nhans_tpu_torch import bench
-    from tests.make_torch_golden import write_reference_tree
-
-    t_phase = time.perf_counter()
-    ref = os.path.join(tmp, "reference")
-    write_reference_tree(ref, np.random.default_rng(17), SUITE_SECONDS)
-    kind = torch.cuda.get_device_name(0)
-    runs = {"infer": ["--mode", "infer", "--iters", str(INFER_ITERS)]}
-    for dtype in ("float32", "bfloat16"):
-        for pipe in ("streamed", "banked"):
-            runs[f"train {pipe} {dtype}"] = (
-                ["--mode", "train", "--iters", str(TRAIN_ITERS), "--dtype",
-                 dtype] + (["--banked"] if pipe == "banked" else []))
-    runs["suite"] = ["--mode", "suite", "--iters", str(SUITE_ITERS),
-                     "--reference_root", ref]
-    res = {}
-    for name, argv in runs.items():
-        torch.cuda.synchronize()
-        stft_cuda.log_spectrogram_kernel.launches = 0
-        t0 = time.perf_counter()
-        with kernel_shapes(stft_cuda) as shapes:
-            stdout, _ = in_process(bench.main, argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = stft_cuda.log_spectrogram_kernel.launches
-        lines = stdout.strip().splitlines()
-        line = json.loads(lines[-1])
-        check(line["card"] == smi and line["device_kind"] == kind,
-              f"{name}: the line names {line['card']!r}, {line['device_kind']!r}")
-        check(np.isfinite(line["value"]) and line["value"] > 0,
-              f"{name}: value {line['value']}")
-        check(launches == len(shapes), f"{name}: {launches} launches, "
-              f"{len(shapes)} recorded")
-        if name == "infer":
-            check(line["audio_source"] == "synthetic", "infer: synthetic")
-            # the contexts once (cached after), the mixtures once a batch
-            want = ([((32, 32240), False)]
-                    + [((16, 160000), True)] * (1 + INFER_ITERS))
-        elif name.startswith("train"):
-            dtype = name.split()[-1]
-            for key in ("steps_per_sec", "step_ms", "flops_per_step"):
-                check(np.isfinite(line[key]) and line[key] > 0,
-                      f"{name}: {key} {line[key]}")
-            check(0 < line["mfu_est"] <= 1, f"{name}: mfu_est "
-                  f"{line['mfu_est']}")
-            check(line["flops_per_step"] == step_flops,
-                  f"{name}: {line['flops_per_step']} FLOPs a step against "
-                  f"phase 9's {step_flops}")
-            check((line["dtype"], line["pipeline"], line["windows_per_step"])
-                  == (dtype, name.split()[1], 64), f"{name}: line fields")
-            length = 163600 if line["pipeline"] == "streamed" else 63920
-            # 4 a step: the warm step, the timed ones, the counted one
-            want = [((16, length), False)] * (4 * (TRAIN_ITERS + 2))
-        else:
-            check(all(np.isfinite(v) and v > 0
-                      for v in line["configs"].values()),
-                  f"suite: configs {line['configs']}")
-            check(line["value"] == min(line["configs"].values()),
-                  "suite: value is the least RTF")
-            want = suite_shapes()
-        check(shapes == want, f"{name}: kernel calls {shapes}, expected "
-              f"{want}")
-        res[name] = dict(line=line, launches=launches, wall=wall)
-        say(f"[17 bench] {name}: {lines[-1]} ({launches} kernel launches, "
-            f"{wall:.1f} s)")
-    wall = time.perf_counter() - t_phase
-    say(f"[17] phase 17 wall time {wall:.1f} s on {smi}")
-    return res
 
 
 # Phase 18's process in the installed copy, with jax and nhans_tpu
@@ -2182,8 +2072,7 @@ def main() -> int:
                             (16, 163600, False), (16, 64000, False),
                             (8, 163600, False), (8, 256000, True),
                             (1, 52000, True), (1, 48000, True),
-                            (16, 160000, True), (16, 63920, False),
-                            (8, 512000, True), (1, 42000, False)):
+                            (1, 42000, False)):
         x = torch.from_numpy((rng.standard_normal((B, L)) * 0.3)
                              .astype(np.float32)).to(dev)
         F = sp.num_frames(L)
@@ -2489,7 +2378,6 @@ def main() -> int:
             trainer.step_fn(trainer.state, dbanks.banks, idx,
                             step_generator(0, 0))
         flops = counter.get_total_flops()
-        step_flops = flops  # phase 17's harness counts the same step
         del dbanks
         say(f"[9 train] denoiser banked, full width, {trainer.batch_utts} "
             f"utterances x {trainer.cfg.data.slices_per_step} crops: losses "
@@ -3041,9 +2929,6 @@ def main() -> int:
         p16 = phase16(tmp, corpus, smi, banked_losses, p7,
                       (den, mixed, pos, neg))
 
-        # -- 17. the benchmark harness ----------------------------------------
-        p17 = phase17(tmp, smi, stft_cuda, step_flops)
-
         # -- 18. the installed package ----------------------------------------
         p18 = phase18(tmp, corpus, smi, p7)
 
@@ -3072,17 +2957,6 @@ def main() -> int:
              p16["conv_launches"], [(2, 32240), (1, 52000)]),
             ("validate_demo", (1, 48000, True), p16["vd_launches"],
              [(2, 32240), (1, 48000)]),
-            ("bench infer", (16, 160000, True), p17["infer"]["launches"],
-             [(32, 32240), (16, 160000)]),
-            ("bench train, streamed", (16, 163600, False),
-             sum(p17[f"train streamed {d}"]["launches"]
-                 for d in ("float32", "bfloat16")), [(16, 163600)]),
-            ("bench train, banked", (16, 63920, False),
-             sum(p17[f"train banked {d}"]["launches"]
-                 for d in ("float32", "bfloat16")), [(16, 63920)]),
-            ("bench suite", (8, 512000, True), p17["suite"]["launches"],
-             [(2, 32240), (16, 32240), (1, 96000), (8, 96000),
-              (8, 512000)]),
             ("installed package", (1, 52000, True), p18["launches"],
              [(2, 32240), (1, 52000)]),
             ("serving, Orbax checkpoint", (1, 52000, True),
@@ -3129,24 +3003,6 @@ def main() -> int:
                 "one separation example of 3 s with the shipped weights "
                 "(phase 16 (d)), contexts [2, 32240] and mixed [1, 48000] "
                 "each; times: phase 4 at the mixed shape")
-        if path.startswith("bench"):
-            kernels[-1]["note"] = {
-                "bench infer": (
-                    f"launches: python -m nhans_tpu_torch.bench --mode infer "
-                    f"--iters {INFER_ITERS} (phase 17): contexts [32, 32240] "
-                    "once (cached after), mixed [16, 160000] once a batch"),
-                "bench train, streamed": (
-                    f"launches: --mode train --iters {TRAIN_ITERS} in float32 "
-                    "and bfloat16 (phase 17), 4 a step; times: phase 4 at "
-                    "the same float32 shape"),
-                "bench train, banked": (
-                    f"launches: --mode train --banked --iters {TRAIN_ITERS} in "
-                    "float32 and bfloat16 (phase 17), 4 a step"),
-                "bench suite": (
-                    f"launches: --mode suite --iters {SUITE_ITERS} on a "
-                    f"stand-in tree of {SUITE_SECONDS} s mixtures (phase 17);"
-                    " times: phase 4 at the 5-minute path's segments"),
-            }[path]
         if path == "installed package":
             kernels[-1]["note"] = (
                 "launches: T/bin/nhans_torch_denoiser of pip install --target "

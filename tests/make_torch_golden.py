@@ -210,53 +210,6 @@ def write_demo_tree(root: str, clean, noise, other) -> None:
         write("source_separation", kind, x)
 
 
-def write_reference_tree(root: str, rng, seconds: float) -> None:
-    """A seeded stand-in, under ``root``, for the reference audio tree
-    that ``bench.py``'s suite and DEMO batch read, as 16 kHz int16 wavs:
-    every mixture is ``seconds`` long (a harmonic tone with a moving pitch
-    in noise), every context recording 3 s: of noise, or for the
-    separator's speakers, of another tone in noise.
-
-    * ``N_HANS___Selective_Noise/audio_examples``: ``Silent.wav`` (1 s of
-      zeros), ``exp1_noisy``, ``exp2_noisy``, ``exp1_+noise``,
-      ``exp1_-noise``, ``exp2_noise``;
-    * ``N_HANS___Source_Separation/audio_examples``: ``mixed``,
-      ``target_speaker``, ``noise_speaker``;
-    * ``DEMO_N-HANS/denoising/example1`` to ``example7``:
-      ``example<k>_mixed`` and ``example<k>_negNoise``."""
-    from scipy.io import wavfile
-
-    def write(path, x):
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        wavfile.write(path, 16000,
-                      np.clip(np.rint(x), -32768, 32767).astype(np.int16))
-
-    def mixture(f0, secs=seconds):
-        t = np.arange(int(secs * 16000)) / 16000.0
-        phase = 2 * np.pi * np.cumsum(f0 + 30 * np.sin(2 * np.pi * 0.5 * t))
-        voice = sum(np.sin(h * phase / 16000.0) / h for h in range(1, 6))
-        return 6000.0 * voice + rng.standard_normal(len(t)) * 1500.0
-
-    def noise():
-        return rng.standard_normal(3 * 16000) * 2000.0
-
-    aex = os.path.join(root, "N_HANS___Selective_Noise", "audio_examples")
-    write(os.path.join(aex, "Silent.wav"), np.zeros(16000))
-    for name, x in (("exp1_noisy", mixture(140)), ("exp2_noisy", mixture(190)),
-                    ("exp1_+noise", noise()), ("exp1_-noise", noise()),
-                    ("exp2_noise", noise())):
-        write(os.path.join(aex, f"{name}.wav"), x)
-    ss = os.path.join(root, "N_HANS___Source_Separation", "audio_examples")
-    for name, x in (("mixed", mixture(120) + mixture(230)),
-                    ("target_speaker", mixture(120, 3)),
-                    ("noise_speaker", mixture(230, 3))):
-        write(os.path.join(ss, f"{name}.wav"), x)
-    for k in range(1, 8):
-        d = os.path.join(root, "DEMO_N-HANS", "denoising", f"example{k}")
-        write(os.path.join(d, f"example{k}_mixed.wav"), mixture(100 + 20 * k))
-        write(os.path.join(d, f"example{k}_negNoise.wav"), noise())
-
-
 # the training golden: one utterance of 261 frames, 2 crops, sgd
 TRAIN_SEED = 20250
 TRAIN_SLICES = 2
@@ -1070,19 +1023,18 @@ def flop_counts() -> dict:
     """The FLOPs of one narrow denoiser sgd step on ``golden_train_inputs``
     (the reduced model of the port's step tests, 2 crops), on the CPU:
     ``jax``, XLA's ``cost_analysis()["flops"]`` of the JAX package's jitted
-    step, as ``bench.py`` reads it; ``port``, torch's count
-    (``nhans_tpu_torch.bench.count_flops``) of the port's step, which on
-    the CPU includes the plain spectrogram's DFT products; ``port_card``,
-    that count less the four spectrograms', which is what the harness
-    counts on the card, where the spectrogram is a kernel the counter
-    does not see."""
+    step, as ``bench.py`` reads it; ``port``, torch's ``FlopCounterMode``
+    count of the port's step, which on the CPU includes the plain
+    spectrogram's DFT products; ``port_card``, that count less the four
+    spectrograms', which is what the counter sees on the card, where the
+    spectrogram is a kernel it does not count."""
     import jax
     import jax.numpy as jnp
     import torch
+    from torch.utils.flop_counter import FlopCounterMode
 
     from nhans_tpu.train.step import create_state as j_create_state
     from nhans_tpu.train.step import make_train_step as j_make_train_step
-    from nhans_tpu_torch.bench import count_flops
     from nhans_tpu_torch.ops.stft_cuda import log_spectrogram_plain
     from nhans_tpu_torch.train.step import create_state, make_train_step
 
@@ -1098,6 +1050,12 @@ def flop_counts() -> dict:
     compiled = jax.jit(lambda s, b, k: jstep(s, b, k)).lower(
         jstate, jbatch, jax.random.PRNGKey(1)).compile()
     jflops = float(compiled.cost_analysis()["flops"])
+
+    def count_flops(fn):
+        with FlopCounterMode(display=False) as counter:
+            fn()
+        return counter.get_total_flops()
+
     tmodel, tstate, ttx = create_state(tcfg, torch.Generator().manual_seed(0),
                                        "cpu")
     tstep = make_train_step(tcfg, tmodel, ttx)

@@ -37,7 +37,7 @@ def test_every_module_imports_with_jax_blocked():
     r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    # config, version, bench, 12 subpackages,
+    # config, version, 12 subpackages,
     # dsp/{spectral,mixing,windowing},
     # ops/{_build,stft_cuda,tower_conv,tower_epilogue}, nn/{blocks,model},
     # compat/{weights,tf_bundle,tf_import,orbax}, infer/enhance,
@@ -50,7 +50,7 @@ def test_every_module_imports_with_jax_blocked():
     # tools/{devtime,profile_serving,profile_training,spectrogram_anatomy,
     #        eval_checkpoints,ckpt_npz,ckpt_average,validate_demo,
     #        train_supervisor}, parallel/{mesh,sharding_rules}
-    assert int(r.stdout.strip()) == 68
+    assert int(r.stdout.strip()) == 67
 
 
 _RUN_BLOCKED = r"""
@@ -70,12 +70,21 @@ runpy.run_module(module, run_name="__main__")
     ("nhans_tpu_torch.tools.ckpt_npz", [], 2, "unpack"),
     ("nhans_tpu_torch.tools.validate_demo", ["--help"], 0, "--demo_root"),
     ("nhans_tpu_torch.tools.train_supervisor", ["--help"], 0, "--target"),
-    ("nhans_tpu_torch.bench", ["--help"], 0, "--reference_root"),
+    ("nhans_tpu_torch.cli.separator", ["--help"], 0, "--pos"),
+    ("nhans_tpu_torch.cli.evaluate", ["--help"], 0, "--eval_utts"),
+    ("nhans_tpu_torch.cli.seeds", ["--help"], 0, "--split_lists"),
+    ("nhans_tpu_torch.tools.eval_checkpoints", ["--help"], 0,
+     "--checkpoint_root"),
+    ("nhans_tpu_torch.tools.profile_serving", ["--help"], 0, "--seconds"),
+    ("nhans_tpu_torch.tools.profile_training", ["--help"], 0, "--alg"),
+    ("nhans_tpu_torch.tools.spectrogram_anatomy", ["--help"], 0, "--seed"),
+    ("nhans_tpu_torch.data.loader", ["--help"], 0, "--batch_utts"),
 ])
 def test_new_commands_run_with_jax_blocked(module, args, code, needle):
-    """The model-preparation commands, the checkpoint tools and the
-    benchmark harness start as ``python -m`` modules where JAX and
-    nhans_tpu cannot be imported."""
+    """The port's ``python -m`` commands (the model-preparation and
+    serving commands, evaluation, the checkpoint and profiling tools and
+    the loader's self-test) start where JAX and nhans_tpu cannot be
+    imported, as on a machine without them."""
     r = subprocess.run([sys.executable, "-c", _RUN_BLOCKED, module, *args],
                        cwd=REPO, capture_output=True, text=True, timeout=300)
     assert r.returncode == code, r.stderr

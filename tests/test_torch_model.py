@@ -185,3 +185,62 @@ def test_full_width_matches_flax_on_shipped_weights(rng, npz):
                     emb_b=gb.repeat_interleave(4, 0)).numpy()
     assert _oracle_err(ga.numpy(), np.asarray(ea[::4])) < ORACLE_BAR
     assert _oracle_err(got, ref) < ORACLE_BAR
+
+
+def _analytic_flops(model, run):
+    """2 x the multiply-adds of every Conv and Dense call in ``run()``,
+    from the shapes of their weights and outputs: the modules' calls, and
+    the main tower's convolutions that the inference forward hands to
+    ``ops.tower_conv`` instead."""
+    from nhans_tpu_torch.nn import model as nn_model
+
+    total = [0]
+
+    def conv(mod, inputs, y):
+        o, i, kh, kw = mod.w.shape
+        total[0] += 2 * y.shape[0] * o * y.shape[2] * y.shape[3] * i * kh * kw
+
+    def dense(mod, inputs, y):
+        n_in, n_out = mod.w.shape
+        total[0] += 2 * (inputs[0].numel() // n_in) * n_in * n_out
+
+    real = nn_model.tower_conv
+
+    def tower_conv(x, w, *args):
+        y = real(x, w, *args)
+        total[0] += 2 * y.numel() * w[0].numel()
+        return y
+
+    hooks = [m.register_forward_hook(conv if isinstance(m, blocks.Conv)
+                                     else dense)
+             for m in model.modules()
+             if isinstance(m, (blocks.Conv, blocks.Dense))]
+    nn_model.tower_conv = tower_conv
+    try:
+        run()
+    finally:
+        nn_model.tower_conv = real
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def test_flop_count_is_the_analytic_count():
+    """``FlopCounterMode``'s count of the reduced model's inference forward,
+    which tools/profile_serving.py prints per window, equals 2 x the
+    multiply-adds of its convolutions and dense layers, exactly."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    m = ModelConfig(**_SMALL)
+    model = NHANSNet(m).eval()
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(5, m.window_frames, m.num_features, generator=g)
+    ctx = torch.randn(5, m.context_frames, m.num_features, generator=g)
+
+    def forward():
+        with torch.no_grad():
+            model(x, ctx, ctx)
+
+    with FlopCounterMode(display=False) as counter:
+        forward()
+    assert counter.get_total_flops() == _analytic_flops(model, forward) > 0
