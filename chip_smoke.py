@@ -37,7 +37,9 @@ port's two main paths at full width:
 * the training options: one full-width bfloat16 sgd step against the JAX
   package's (tests/data/torch_golden_train_bf16.npz); step time (CUDA
   events), TFLOP/s and peak memory in float32 and bfloat16 with sgd and
-  Adam, with and without --remat (whose step must equal the plain one)
+  Adam (2 launches a step of the optimizer kernel, csrc/optimizer_update.cu,
+  which is held bit for bit to its plain version at the separator's 393
+  tensors and timed against it), with and without --remat (whose step must equal the plain one)
   and with --freq_pad_to 256; serving with NHANS_FREQ_PAD=256 against the
   native geometry, with its RTF; and ``nhans_tpu_torch.cli.train --dtype
   bfloat16 --remat --profile_dir`` for 21 steps, whose trace must name the
@@ -1922,6 +1924,95 @@ def time_tower_convs(dev, cycles_per_ms, smi, convs):
     return timings
 
 
+# phase 12: the optimizer kernel's bytes a value (gradient and parameter
+# read, parameter written; Adam also reads and writes mu and nu)
+OPTIMIZER_BYTES = {"sgd": 12, "adam": 28}
+
+
+def optimizer_kernel(dev, cycles_per_ms, smi):
+    """The optimizer kernel (csrc/optimizer_update.cu) at the separator's
+    393 parameter tensors, random, one without a gradient, for sgd and
+    Adam (Adam's third update, so both corrections differ from 1):
+
+    (a) one update through ``optimizer_update`` in 2 launches, its
+        parameters, mu and nu equal bit for bit to ``optimizer_update_plain``
+        on clones of the same card tensors, the squared sum within 1e-6
+        relative;
+    (b) device time of the update, warm, against the plain version; the
+        bound is OPTIMIZER_BYTES a value at the card's bandwidth.
+    Returns (timings by rule, the values)."""
+    import torch
+
+    from nhans_tpu_torch.config import Config
+    from nhans_tpu_torch.nn.model import NHANSNet
+    from nhans_tpu_torch.ops import optimizer_update as ou
+    from nhans_tpu_torch.tools.devtime import device_ms
+
+    with torch.device("meta"):
+        shapes = [p.shape for p in NHANSNet(Config().model).parameters()]
+    g = torch.Generator(device=dev).manual_seed(22)
+
+    def rand(scale, positive=False):
+        return [(torch.rand if positive else torch.randn)(
+            s, generator=g, device=dev) * scale for s in shapes]
+
+    params, grads = rand(0.1), rand(1e-2)
+    grads[7] = None
+    values = sum(p.numel() for p in params)
+    check(len(shapes) == 393 and values == 28980937,
+          f"the separator has {len(shapes)} tensors, {values} values")
+    c1, c2 = (float(torch.tensor(1.0) - torch.tensor(b) ** 3)
+              for b in (0.9, 0.999))
+    timings = {}
+    for name, rule in (("sgd", ou.Rule("sgd", -1e-3)),
+                       ("adam", ou.Rule("adam", -1e-3, c1=c1, c2=c2))):
+        slots = (rand(1e-3), rand(1e-5, positive=True)) if name == "adam" \
+            else ((), ())
+        mine, ref = ([[t.clone() for t in ts] for ts in (params, *slots)]
+                     for _ in range(2))
+        # (a)
+        ou.optimizer_update.launches = 0
+        got = ou.optimizer_update(rule, mine[0], grads, *mine[1:])
+        check(ou.optimizer_update.launches == 2, f"optimizer {name}: "
+              f"{ou.optimizer_update.launches} launches for one update")
+        want = ou.optimizer_update_plain(rule, ref[0], grads, *ref[1:])
+        for what, a, b in zip(("param", "mu", "nu"), mine, ref):
+            bad = [i for i, (x, y) in enumerate(zip(a, b)) if not torch.equal(
+                x.view(torch.int32), y.view(torch.int32))]
+            check(not bad, f"optimizer {name}: {what} of tensors {bad[:5]} "
+                  "differ from the plain version")
+        rel = abs(float(got[0]) - float(want[0])) / float(want[0])
+        check(rel <= 1e-6 and float(got[1]) == 0.0, f"optimizer {name}: "
+              f"squared sums {got.tolist()} against {want.tolist()}")
+        # (b)
+        fns = {"ms": lambda: ou.optimizer_update(rule, mine[0], grads,
+                                                 *mine[1:]),
+               "plain_ms": lambda: ou.optimizer_update_plain(
+                   rule, ref[0], grads, *ref[1:])}
+        reps = {"ms": 50, "plain_ms": 5}
+        runs = {k: [] for k in fns}
+        for key in (*fns, *reversed(list(fns))):
+            runs[key].append(device_ms(fns[key], cycles_per_ms,
+                                       reps=reps[key], warmup=2))
+        t = {k: float(np.mean([ms for ms, _ in v])) for k, v in runs.items()}
+        check(all(a for _, a in runs["ms"]),
+              f"optimizer {name}: the host did not run ahead")
+        nbytes = OPTIMIZER_BYTES[name] * values
+        t.update(bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes",
+                 norm_rel_err=rel)
+        timings[name] = t
+        say(f"[12 optimizer] {name}, one update of 393 tensors "
+            f"({values} values; bit for bit the plain version, squared sum "
+            f"within {rel:.2g}), device time, warm: kernel {t['ms']:.4f} ms,"
+            f" plain {t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms "
+            f"({nbytes / 1e9:.3f} GB), kernel at "
+            f"{100 * t['bound_ms'] / t['ms']:.1f} % of it on {smi}")
+        del mine, ref, slots, got, want, fns
+    del params, grads
+    torch.cuda.empty_cache()
+    return timings, values
+
+
 def main() -> int:
     import torch
 
@@ -2640,7 +2731,8 @@ def main() -> int:
                 for k, v in errs.items()))
 
         # -- 12. step time and memory: float32 and bfloat16, sgd and Adam,
-        # remat, the padded tower -------------------------------------------
+        # the optimizer kernel, remat, the padded tower ---------------------
+        from nhans_tpu_torch.ops.optimizer_update import optimizer_update
         from nhans_tpu_torch.train.step import (create_state, make_tx,
                                                 state_of)
 
@@ -2653,6 +2745,8 @@ def main() -> int:
         idx_loader = BankIndexLoader(dbanks, 16)
         idxs = [{k: torch.from_numpy(v).to(dev) for k, v in
                  next(idx_loader).items()} for _ in range(STEP_RUNS)]
+
+        opt_launches = {}
 
         def step_run(name, alg="sgd", steps=STEP_RUNS, flops=False, **model):
             """(ms per step by CUDA events after 2 warm steps, peak GiB,
@@ -2677,6 +2771,7 @@ def main() -> int:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             stft_cuda.log_spectrogram_kernel.launches = 0
+            optimizer_update.launches = 0
             ev = [torch.cuda.Event(enable_timing=True)
                   for _ in range(steps + 1)]
             ev[0].record()
@@ -2688,6 +2783,11 @@ def main() -> int:
             launches = stft_cuda.log_spectrogram_kernel.launches
             check(launches == 4 * steps, f"{name}: {launches} kernel "
                   f"launches in {steps} steps")
+            # sgd and Adam: one update and one sum of squares a step
+            opt_launches[alg] = optimizer_update.launches
+            check(opt_launches[alg] == 2 * steps, f"{name}: "
+                  f"{opt_launches[alg]} optimizer kernel launches in {steps}"
+                  " steps")
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
             change = {k: v - init[k] for k, v in model_.state_dict().items()
                       if v.is_floating_point()}
@@ -2715,6 +2815,7 @@ def main() -> int:
                 f"of {peak_flops / 1e12:.0f} TFLOP/s; peak memory "
                 f"{rec['peak']:.2f} GiB; {rec['launches']} kernel launches; "
                 f"on {smi}")
+        opt_timings, opt_values = optimizer_kernel(dev, cycles_per_ms, smi)
 
         def worst_update(got_, want_, skip=()):
             """The largest max |diff| over max |delta| of any tensor but
@@ -3083,6 +3184,26 @@ def main() -> int:
                 "F.conv2d on the padded input, TF32 off; plain_ms: F.pad + "
                 "F.conv2d; max_abs_err: the worst error over phase 4c (a)'s "
                 "float32 bound (a ratio, 1 = at the bound)")})
+    for name, t in opt_timings.items():
+        kernels.append({
+            "name": f"optimizer_update (training, {name})",
+            "route": "cuda",
+            "source": "nhans_tpu_torch/csrc/optimizer_update.cu",
+            "replaces": "none: the JAX package leaves the optimizer to XLA",
+            "launches": opt_launches[name],
+            "max_abs_err": 0.0,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "shape": [393, opt_values],
+            "note": (
+                f"launches: phase 12's last {STEP_RUNS} timed full-width "
+                f"{name} steps (update and sum of squares, 2 a step); times: "
+                "phase 12, one update of the separator's 393 tensors, "
+                f"{OPTIMIZER_BYTES[name]} bytes a value; plain_ms: "
+                "optimizer_update_plain, per tensor, paced by the host; "
+                "max_abs_err: params, mu and nu against the plain version "
+                f"(bit for bit); the squared sum within "
+                f"{t['norm_rel_err']:.2g} relative")})
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(smi)
     say(json.dumps({"kernels": kernels}))

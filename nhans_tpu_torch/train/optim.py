@@ -20,16 +20,25 @@ The update rules are optax 0.2.6's, which the JAX package uses, and not
 
 An optimizer is ``Optimizer(init, update)``: ``init(params)`` gives the
 state, ``update(grads, state)`` gives ``(updates, new_state)``, and the
-caller adds the updates to the parameters.  The learning rate is a
-number or a schedule of the update count.
+caller adds the updates to the parameters; or ``apply(params, grads,
+state)`` does it all in place and gives ``(new_state, sumsq)``, the
+gradients' squared sums for the global norm.  sgd and adam apply through
+``ops/optimizer_update.py`` (on a card one kernel over every tensor, bit
+for bit the operations of ``update``); the other rules through
+``update``.  The learning rate is a number or a schedule of the update
+count.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, NamedTuple, Union
+from typing import (Callable, Collection, Dict, NamedTuple, Optional, Tuple,
+                    Union)
 
 import torch
+
+from nhans_tpu_torch.ops.optimizer_update import (Rule, optimizer_update,
+                                                  rule_math, squared_sums)
 
 Tensors = Dict[str, torch.Tensor]
 LearningRate = Union[float, Callable[[int], float]]
@@ -38,6 +47,53 @@ LearningRate = Union[float, Callable[[int], float]]
 class Optimizer(NamedTuple):
     init: Callable[[Tensors], dict]
     update: Callable[[Tensors, dict], tuple]
+
+    def apply(self, params: Tensors, grads: Dict[str, Optional[torch.Tensor]],
+              state: dict, apart: Collection[str] = ()) -> tuple:
+        """Update ``params`` in place for ``grads`` (a missing or None
+        gradient is zeros) and return ``(new_state, sumsq)``: ``sumsq``
+        [2] holds the squared sums of the gradients of the names outside
+        ``apart`` and of those in it.  The slots of ``state`` are updated
+        in place where the rule's own multi-tensor form runs (sgd and
+        adam, ``multi_tensor``)."""
+        multi = self.multi_tensor
+        if multi is not None:
+            return multi(params, grads, state, apart)
+        full = {k: (grads[k] if grads.get(k) is not None
+                    else torch.zeros_like(p)) for k, p in params.items()}
+        sumsq = squared_sums(list(full.values()), [k in apart for k in full])
+        updates, state = self.update(full, state)
+        for k, p in params.items():
+            p.add_(updates[k])
+        return state, sumsq
+
+    @property
+    def multi_tensor(self) -> Optional[Callable]:
+        """The multi-tensor form of ``update`` that ``apply`` runs, or
+        None: ``make_optimizer`` sets it on the sgd and adam rules' own
+        ``update`` (``update.multi_tensor``), and it serves that function
+        alone, so a replaced ``update`` applies the replacement even where
+        it carries the attribute over (as ``functools.wraps`` does)."""
+        multi = getattr(self.update, "multi_tensor", None)
+        return (multi if multi is not None and multi.owner is self.update
+                else None)
+
+
+def _multi_tensor(owner: Callable, rule: Callable[[dict], Rule],
+                  slots: Tuple[str, ...]):
+    """The multi-tensor form of the update ``owner``: ``rule(state)``
+    gives this update's ``Rule``, and ``slots`` are the state's slots the
+    kernel updates in place."""
+    def apply(params, grads, state, apart):
+        names = list(params)
+        r = rule(state)
+        sumsq = optimizer_update(
+            r, [params[k] for k in names], [grads.get(k) for k in names],
+            *([state[s][k] for k in names] for s in slots),
+            groups=[k in apart for k in names])
+        return {**state, "count": state["count"] + 1}, sumsq
+    apply.owner = owner
+    return apply
 
 
 def make_schedule(lr: float, schedule: str = "constant",
@@ -87,11 +143,16 @@ def make_optimizer(alg: str, lr: LearningRate, mom: float = 0.0) -> Optimizer:
             step = _scale(lr, state["count"])
             new = {"count": state["count"] + 1}
             if decay is None:
-                return {k: step * g for k, g in grads.items()}, new
+                return {k: rule_math(Rule("sgd", step), g)[0]
+                        for k, g in grads.items()}, new
             trace = {k: g + decay * state["trace"][k]
                      for k, g in grads.items()}
             new["trace"] = trace
             return {k: step * t for k, t in trace.items()}, new
+        if decay is None:
+            update.multi_tensor = _multi_tensor(
+                update, lambda state: Rule("sgd", _scale(lr, state["count"])),
+                ())
         return Optimizer(init, update)
 
     if alg == "rmsprop":
@@ -157,19 +218,23 @@ def make_optimizer(alg: str, lr: LearningRate, mom: float = 0.0) -> Optimizer:
         def init(params):
             return {"count": 0, "mu": _zeros(params), "nu": _zeros(params)}
 
-        def update(grads, state):
-            step = _scale(lr, state["count"])
+        def rule(state):
+            """This update's rule, with the bias corrections in float32,
+            as optax takes them."""
             t = state["count"] + 1
-            mu = {k: (1 - b1) * g + b1 * state["mu"][k]
-                  for k, g in grads.items()}
-            nu = {k: (1 - b2) * g * g + b2 * state["nu"][k]
-                  for k, g in grads.items()}
-            # the corrections in float32, as optax takes them
-            c1 = float(torch.tensor(1.0) - torch.tensor(b1) ** t)
-            c2 = float(torch.tensor(1.0) - torch.tensor(b2) ** t)
-            upd = {k: step * ((mu[k] / c1) / (torch.sqrt(nu[k] / c2) + eps))
-                   for k in grads}
-            return upd, {"count": t, "mu": mu, "nu": nu}
+            return Rule("adam", _scale(lr, state["count"]), b1, b2, eps,
+                        float(torch.tensor(1.0) - torch.tensor(b1) ** t),
+                        float(torch.tensor(1.0) - torch.tensor(b2) ** t))
+
+        def update(grads, state):
+            r = rule(state)
+            upd, mu, nu = {}, {}, {}
+            for k, g in grads.items():
+                upd[k], mu[k], nu[k] = rule_math(r, g, state["mu"][k],
+                                                 state["nu"][k])
+            return upd, {"count": state["count"] + 1, "mu": mu, "nu": nu}
+
+        update.multi_tensor = _multi_tensor(update, rule, ("mu", "nu"))
         return Optimizer(init, update)
 
     raise ValueError(f"unknown optimizer --alg={alg!r}; expected one of "

@@ -21,8 +21,11 @@ While the profiler runs or ``spans.recording()`` is on, a step records
 the span ``train.step`` (``utils/spans.py``; ``id`` the step number,
 timed on the parameters' device) holding ``train.batch`` (the banked
 gather and ``make_train_batch``), ``train.forward`` (``train_loss``),
-``train.backward`` and ``train.update`` (the gradients, their all-reduce
-and global norm, the optimizer and the in-place add).
+``train.backward`` and ``train.update`` (the gradients, their all-reduce,
+the optimizer's in-place update and the global norm; counts ``params``,
+the values of the parameters, and ``fused_params``, those that
+``ops/optimizer_update.py``'s kernel updated: all of them for sgd and
+adam on a card, none on the CPU or for the other rules).
 """
 
 from __future__ import annotations
@@ -113,12 +116,16 @@ def train_loss(cfg: Config, model: NHANSNet, ex: Dict[str, torch.Tensor],
     return loss
 
 
-def _average_grads(grads: Dict[str, torch.Tensor], group
+def _average_grads(params: Dict[str, torch.Tensor], group
                    ) -> Dict[str, torch.Tensor]:
-    """The gradients averaged over ``group``, in one all-reduce of a flat
-    float32 buffer."""
+    """The gradients of ``params`` (zeros where none reached a parameter)
+    averaged over ``group``, in one all-reduce of a flat float32 buffer;
+    without a group the gradients as they are, None where none reached a
+    parameter."""
     if group is None:
-        return grads
+        return {k: p.grad for k, p in params.items()}
+    grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
+             for k, p in params.items()}
     flat = torch.cat([g.reshape(-1).to(torch.float32)
                       for g in grads.values()])
     dist.all_reduce(flat, group=group)
@@ -130,16 +137,16 @@ def _average_grads(grads: Dict[str, torch.Tensor], group
     return out
 
 
-def _global_norm(grads: Dict[str, torch.Tensor], shards: dict,
+def _global_norm(sumsq: torch.Tensor, shards: dict,
                  model_group) -> torch.Tensor:
-    """The norm of the whole gradient: the replicated tensors' squares
-    plus the model-axis blocks' squares summed over the model group."""
-    total = sum(torch.sum(g * g) for k, g in grads.items()
-                if k not in shards)
+    """The norm of the whole gradient from ``Optimizer.apply``'s squared
+    sums: the replicated tensors' plus the model-axis blocks' summed over
+    the model group."""
+    total = sumsq[0]
     if shards:
-        blocks = sum(torch.sum(grads[k] * grads[k]) for k in shards)
+        blocks = sumsq[1:]
         dist.all_reduce(blocks, group=model_group)
-        total = total + blocks
+        total = total + blocks[0]
     return torch.sqrt(total)
 
 
@@ -169,6 +176,11 @@ def make_train_step(cfg: Config, model: NHANSNet, tx: Optimizer,
     data_group = mesh.data_group if mesh is not None else None
     shards = model_shards(model) if mesh is not None else {}
     device = next(model.parameters()).device  # the spans' timed stream
+    values = sum(p.numel() for p in model.parameters())
+    # the wrapper sends CUDA tensors to the kernel, CPU tensors to the
+    # plain version
+    fused = values if (tx.multi_tensor is not None
+                       and device.type == "cuda") else 0
 
     def core(state: TrainState, gather, generator: torch.Generator,
              draws=None) -> Dict[str, torch.Tensor]:
@@ -197,17 +209,15 @@ def make_train_step(cfg: Config, model: NHANSNet, tx: Optimizer,
                                   generator if noise else None, mesh, rows)
             with spans.span("train.backward", id=state.step, device=device):
                 loss.backward()
-            with spans.span("train.update", id=state.step, device=device), \
-                    torch.no_grad():
-                grads = {k: (p.grad if p.grad is not None
-                             else torch.zeros_like(p))
-                         for k, p in state.params.items()}
-                grads = _average_grads(grads, data_group)
-                gnorm = _global_norm(grads, shards, mesh and mesh.model_group)
-                updates, state.opt_state = tx.update(grads, state.opt_state)
-                for k, p in state.params.items():
-                    p.add_(updates[k])
+            with spans.span("train.update", id=state.step,
+                            device=device) as s, torch.no_grad():
+                grads = _average_grads(state.params, data_group)
+                state.opt_state, sumsq = tx.apply(
+                    state.params, grads, state.opt_state, apart=shards)
+                for p in state.params.values():
                     p.grad = None
+                gnorm = _global_norm(sumsq, shards, mesh and mesh.model_group)
+                s.count(params=values, fused_params=fused)
         state.step += 1
         return {"loss": all_reduce_mean(loss.detach(), data_group),
                 "grad_norm": gnorm}

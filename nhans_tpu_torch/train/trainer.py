@@ -172,8 +172,11 @@ class Trainer:
                 f"the checkpoint's optimizer slots {sorted(opt)} do not fit "
                 f"--alg {self.cfg.train.alg} (mom {self.cfg.train.mom}), "
                 f"whose slots are {sorted(self.state.opt_state)}")
+        # contiguous once here: the update kernel takes no other layout
         self.state.opt_state = {
-            k: (v if k == "count" else cut_full(v, self.shards))
+            k: (v if k == "count" else
+                {n: t.contiguous()
+                 for n, t in cut_full(v, self.shards).items()})
             for k, v in opt.items()}
         self.state.step = self.tstep = int(extra["step"])
 

@@ -32,7 +32,9 @@ context embeddings, from the cache or encoded) and ``enhance.run``
 ``enhance.materialize`` (read-back and slicing).  The train step
 (``train/step.py``) records ``train.step`` (``id`` the step number, on
 the parameters' device) around ``train.batch``, ``train.forward``,
-``train.backward`` and ``train.update``.  The trainer adds
+``train.backward`` and ``train.update`` (counts ``params``: the
+parameters' values, and ``fused_params``: those the optimizer's kernel
+updated).  The trainer adds
 ``train.iteration`` (fetch and step, by device time ``step_device_ms``)
 around ``train.fetch`` (the input wait).
 """
