@@ -12,8 +12,11 @@ block's serving shape, the fused tower against the modules on the shipped
 weights, and times the epilogue against its plain version and the
 modules (phase 4b); holds the main tower's convolution kernel
 (csrc/tower_conv.cu) within the float32 bound of the float64 convolution
-at its 16 shapes and times it against cuDNN (phase 4c); then drives the
-port's two main paths at full width:
+at its 16 shapes and times it against cuDNN, and the training step's 24
+convolutions of both towers in three directions (forward and stride-1
+input gradient through csrc/tower_conv.cu, weight and bias gradients
+through csrc/conv_wgrad.cu) against float64 and cuDNN, timed beside it
+(phase 4c); then drives the port's two main paths at full width:
 
 * serving seeded utterances with the shipped weights
   (docs/quality/*_q5_swa.npz): the denoiser (against the same Enhancer on
@@ -39,7 +42,11 @@ port's two main paths at full width:
   events), TFLOP/s and peak memory in float32 and bfloat16 with sgd and
   Adam (2 launches a step of the optimizer kernel, csrc/optimizer_update.cu,
   which is held bit for bit to its plain version at the separator's 393
-  tensors and timed against it), with and without --remat (whose step must equal the plain one)
+  tensors and timed against it; in float32 54 launches a step of the
+  convolution kernel and 32 of the weight-gradient kernel, none in
+  bfloat16), a float32 forward and backward of the separator through the
+  training convolutions against the modules' gradients, leaf by leaf,
+  with and without --remat (whose step must equal the plain one)
   and with --freq_pad_to 256; serving with NHANS_FREQ_PAD=256 against the
   native geometry, with its RTF; and ``nhans_tpu_torch.cli.train --dtype
   bfloat16 --remat --profile_dir`` for 21 steps, whose trace must name the
@@ -1599,6 +1606,15 @@ EPILOGUE_WINDOWS = (2048, 795, 1)
 # roundings (rms 2e-7 to 1e-6 of unit outputs, phase 4c); TF32 in the
 # modules moves the residual by about 1e-3 of its largest.
 TOWER_RTOL = 2e-5
+# a full step's gradients through the training kernels against the
+# modules' (cuDNN, TF32 off), by leaf over the larger of the leaf's norm and
+# the median leaf's (the benchmark's grad_gap): both are float32 sums in
+# other orders, which BatchNorm's backward amplifies in a few leaves
+STEP_GRAD_GAP = 1e-2
+# the training kernels' rms error against the float64 result, at most this
+# many times cuDNN's float32 one (TF32 off) in the same direction: both are
+# float32 sums of the same products in another order
+TRAIN_CONV_RMS_X = 2.0
 
 
 def epilogue_tables(N, C, H, W, dev, seed):
@@ -1827,14 +1843,27 @@ def phase4c(dev, cycles_per_ms, smi):
         bound (the larger of the direct FLOPs at 67 TFLOP/s and the bytes
         of input, weights and output at 3.35 TB/s); the kernel faster than
         cuDNN at every one.
-    Returns (the worst error over its bound in (a), timings)."""
+    (c) the training step's 24 convolutions (``train_convs``: both towers'
+        k x k ones at 64 windows) in three directions, each through the
+        path the step takes (``tower_conv``; ``tower_conv.input_grad``,
+        cuDNN's at a stride; ``conv_wgrad``) and cuDNN's as the modules run
+        it: every value within the float32 sum's worst-case bound of the
+        float64 result, the rms error at most TRAIN_CONV_RMS_X times
+        cuDNN's, the weight and bias gradients bit for bit across two runs.
+    (d) device time of each of (c)'s, the kernels' and cuDNN's, beside the
+        direct operations at 67 TFLOP/s, and their sums over a step.
+    Returns (the worst error over its bound in (a), timings, the worst in
+    (c), (d)'s timings)."""
     from nhans_tpu_torch.config import Config
     from nhans_tpu_torch.utils.device import full_float32
 
     convs = tower_convs(Config.denoiser().model)
+    train = train_convs(Config.separator().model)
     with full_float32():
         return (check_tower_convs(dev, convs),
-                time_tower_convs(dev, cycles_per_ms, smi, convs))
+                time_tower_convs(dev, cycles_per_ms, smi, convs),
+                check_train_convs(dev, train)[0],
+                time_train_convs(dev, cycles_per_ms, smi, train))
 
 
 def check_tower_convs(dev, convs):
@@ -1922,6 +1951,316 @@ def time_tower_convs(dev, cycles_per_ms, smi, convs):
             f"plain {total['plain_ms']:.3f} ms, bound {total['bound_ms']:.3f}"
             f" ms on {smi}")
     return timings
+
+
+# phase 4c: the training step's windows (16 utterances x 4 crops); the
+# context tower runs on each window's two crops, in two calls of 64
+TRAIN_WINDOWS = 64
+
+
+def train_convs(model_cfg, windows=TRAIN_WINDOWS):
+    """Both towers' k x k convolutions in a training step of ``windows``
+    windows: (name, N, Cin, Cout, (kh, kw), (sh, sw), H, W, bias, calls)
+    of each, H and W its input's, ``calls`` its runs a step (the context
+    tower's 2).  The first of each tower reads the data."""
+    from nhans_tpu_torch.nn.blocks import same_pads
+
+    convs, cin = [], 1
+    t, f = model_cfg.window_frames, model_cfg.num_features
+    for i, (k, s, c) in enumerate(model_cfg.main_blocks):
+        convs.append((f"resblock{i + 1}.conv1", windows, cin, c, (k, k),
+                      (s, s), t, f, False, 1))
+        t, f = same_pads(t, k, s)[2], same_pads(f, k, s)[2]
+        convs.append((f"resblock{i + 1}.conv2", windows, c, c, (k, k),
+                      (1, 1), t, f, True, 1))
+        cin = c
+    cin = 1
+    t, f = model_cfg.context_frames, model_cfg.num_features
+    for i, (kernel, stride, c) in enumerate(model_cfg.context_blocks):
+        convs.append((f"embedding.block{i + 1}.conv1", windows, cin, c,
+                      tuple(kernel), tuple(stride), t, f, False, 2))
+        t, f = same_pads(t, kernel[0], stride[0])[2], same_pads(
+            f, kernel[1], stride[1])[2]
+        convs.append((f"embedding.block{i + 1}.conv2", windows, c, c,
+                      tuple(kernel), (1, 1), t, f, True, 2))
+        cin = c
+    return convs
+
+
+def train_conv_inputs(conv, dev, seed):
+    """Random x, w (unit variance of the output), bias, stride, pads and
+    an output gradient dy of unit entries, float32, for one of
+    ``train_convs``."""
+    import torch
+
+    from nhans_tpu_torch.nn.blocks import same_pads
+    from nhans_tpu_torch.ops import tower_conv as tc
+
+    _, N, cin, cout, (kh, kw), (sh, sw), H, W, bias, _ = conv
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(N, cin, H, W, generator=g, device=dev)
+    w = torch.randn(cout, cin, kh, kw, generator=g, device=dev) / (
+        cin * kh * kw) ** 0.5
+    b = torch.randn(cout, generator=g, device=dev) * 0.1 if bias else None
+    tl, th, _ = same_pads(H, kh, sh)
+    fl, fh, _ = same_pads(W, kw, sw)
+    pads = (fl, fh, tl, th)
+    Ho, Wo = tc.out_size(H, kh, sh, tl, th), tc.out_size(W, kw, sw, fl, fh)
+    dy = torch.randn(N, cout, Ho, Wo, generator=g, device=dev)
+    return x, w, b, (sh, sw), pads, dy
+
+
+def _gaps(got, exact, mag, K, lib):
+    """(max |got - exact| over the float32 sum's worst case (K + 1) u mag,
+    rms of got's error, rms of lib's), all against the float64 result."""
+    bound = mag.mul_((K + 1) * 2.0 ** -24)
+    over = ((got.double() - exact).abs_() / bound).max().item()
+    return (over, (got.double() - exact).square_().mean().sqrt().item(),
+            (lib.double() - exact).square_().mean().sqrt().item())
+
+
+def train_conv_directions(conv, x, w, b, stride, pads, dy):
+    """The three directions of one training convolution: for each of
+    "forward", "input" (not for a convolution that reads the data) and
+    "weight", (the kernels' function, cuDNN's function as the modules run
+    it, the float64 exact function, the float64 function of |inputs|, K
+    products an output)."""
+    import torch
+    import torch.nn.functional as F
+
+    from nhans_tpu_torch.ops import tower_conv as tc
+    from nhans_tpu_torch.ops.conv_wgrad import conv_wgrad
+
+    _, N, cin, cout, kernel, _, H, W, bias, _ = conv
+    kh, kw = kernel
+    pl, pr, pt, pb = pads
+    xp = F.pad(x, pads)
+    big = (N, cin, H + pt + pb, W + pl + pr)
+
+    def dx(d, wt):
+        return torch.nn.grad.conv2d_input(big, wt, d, stride)[
+            :, :, pt:pt + H, pl:pl + W]
+
+    def dw(xx, d):
+        return torch.nn.grad.conv2d_weight(xx, w.shape, d, stride)
+
+    out = {"forward": (
+        lambda: tc.tower_conv(x, w, b, stride, pads),
+        lambda: F.conv2d(xp, w, b, stride=stride),
+        lambda: F.conv2d(xp.double(), w.double(),
+                         None if b is None else b.double(), stride=stride),
+        lambda: F.conv2d(xp.double().abs(), w.double().abs(),
+                         None if b is None else b.double().abs(),
+                         stride=stride),
+        cin * kh * kw)}
+    if cin > 1:
+        out["input"] = (
+            lambda: tc.input_grad(dy, w, x.shape, stride, pads),
+            lambda: dx(dy, w),
+            lambda: dx(dy.double(), w.double()),
+            lambda: dx(dy.double().abs(), w.double().abs()),
+            cout * kh * kw)
+    out["weight"] = (
+        lambda: conv_wgrad(x, dy, kernel, stride, pads, bias),
+        lambda: (dw(xp, dy), dy.sum((0, 2, 3)) if bias else None),
+        lambda: (dw(xp.double(), dy.double()),
+                 dy.double().sum((0, 2, 3)) if bias else None),
+        lambda: (dw(xp.double().abs(), dy.double().abs()),
+                 dy.double().abs().sum((0, 2, 3)) if bias else None),
+        N * dy.shape[2] * dy.shape[3])
+    return out
+
+
+def check_train_convs(dev, convs):
+    """Phase 4c (c); the worst error over its bound, and the gaps by
+    (convolution, direction)."""
+    import torch
+
+    worst, gaps = 0.0, {}
+    for i, conv in enumerate(convs):
+        name = conv[0]
+        args = train_conv_inputs(conv, dev, 100 + i)
+        for d, (mine, lib, exact, mag, K) in train_conv_directions(
+                conv, *args).items():
+            got, ref = mine(), lib()
+            want, size = exact(), mag()
+            if d == "weight":
+                again = mine()
+                check(torch.equal(got[0], again[0]) and (
+                    got[1] is None or torch.equal(got[1], again[1])),
+                    f"conv_wgrad {name}: two runs differ")
+                parts = [(got[0], want[0], size[0], ref[0])]
+                if got[1] is not None:
+                    parts.append((got[1], want[1], size[1], ref[1]))
+            else:
+                parts = [(got, want, size, ref)]
+            torch.cuda.synchronize()
+            for j, (g, e, m, r) in enumerate(parts):
+                over, rms, rms_lib = _gaps(g, e, m, K, r)
+                what = f"{name} {d}" + (" (bias)" if j else "")
+                gaps[what] = (over, rms, rms_lib)
+                worst = max(worst, over)
+                check(over <= 1.0, f"{what}: {over:.3g} times the float32 "
+                      "bound from the float64 result")
+                check(rms <= TRAIN_CONV_RMS_X * rms_lib + 1e-30,
+                      f"{what}: rms error {rms:.3g}, cuDNN's {rms_lib:.3g}")
+                say(f"[4c train] {what} [{conv[1]}, {conv[2]}, {conv[6]}, "
+                    f"{conv[7]}] k{conv[4]} s{conv[5]} -> {conv[3]}: max "
+                    f"error {over:.3g} of the bound, rms {rms:.3g} (cuDNN "
+                    f"{rms_lib:.3g})")
+            del got, ref, want, size, parts
+        del args
+        torch.cuda.empty_cache()
+    return worst, gaps
+
+
+def time_train_convs(dev, cycles_per_ms, smi, convs):
+    """Phase 4c (d); device ms by (convolution, direction): the kernels'
+    and cuDNN's as the modules run it, and the direct operations' bound."""
+    import torch
+
+    from nhans_tpu_torch.tools.devtime import device_ms
+
+    timings = {}
+    for i, conv in enumerate(convs):
+        name = conv[0]
+        args = train_conv_inputs(conv, dev, i)
+        for d, (mine, lib, _, _, K) in train_conv_directions(
+                conv, *args).items():
+            # K products for each output: y (dy's size), dx or dw
+            ops = 2 * K * {"forward": args[5], "input": args[0],
+                           "weight": args[1]}[d].numel()
+            fns = {"ms": mine, "library_ms": lib}
+            if d == "input" and conv[5] != (1, 1):
+                fns = {"library_ms": lib}       # cuDNN's in both paths
+            runs = {key: [] for key in fns}
+            with torch.no_grad():
+                for key in (*fns, *reversed(list(fns))):
+                    runs[key].append(device_ms(fns[key], cycles_per_ms,
+                                               reps=3, warmup=2)[0])
+            t = {key: float(np.mean(v)) for key, v in runs.items()}
+            t.update(bound_ms=1e3 * ops / PEAK_FP32_FLOPS, flops=ops,
+                     calls=conv[9], shape=[conv[1], conv[2], conv[6],
+                                           conv[7], conv[3], list(conv[4]),
+                                           list(conv[5])])
+            timings[(name, d)] = t
+            mine_ms = t.get("ms")
+            say(f"[4c train] {name} {d} x{conv[1]} [{conv[2]}->{conv[3]}, "
+                f"{conv[6]}x{conv[7]}, k{conv[4]} s{conv[5]}], device time: "
+                + (f"kernel {mine_ms:.4f} ms "
+                   f"({100 * t['bound_ms'] / mine_ms:.1f} % of the bound), "
+                   if mine_ms is not None else "")
+                + f"cuDNN {t['library_ms']:.4f} ms, bound "
+                f"{t['bound_ms']:.4f} ms" + (
+                    f", x{t['library_ms'] / mine_ms:.2f} on cuDNN"
+                    if mine_ms is not None else ""))
+        del args
+        torch.cuda.empty_cache()
+    for d in ("forward", "input", "weight"):
+        rows = [(k, t) for k, t in timings.items() if k[1] == d]
+        lib = sum(t["library_ms"] * t["calls"] for _, t in rows)
+        ours = sum((t.get("ms", t["library_ms"])) * t["calls"]
+                   for _, t in rows)
+        bound = sum(t["bound_ms"] * t["calls"] for _, t in rows)
+        say(f"[4c train] a step's {d}: kernels {ours:.3f} ms, cuDNN "
+            f"{lib:.3f} ms, bound {bound:.3f} ms on {smi}")
+    return timings
+
+
+def hand_step(dev, model_cfg, weights, windows=TRAIN_WINDOWS, seed=23,
+              modules_tf32=False):
+    """One training forward and backward of the model at full width on
+    ``windows`` random windows and their contexts, from ``weights``, TF32
+    off: once through the hand-written training convolutions and once
+    through the modules (``nn/model.py::_train_conv`` replaced by the module
+    call; in TF32 with ``modules_tf32``), from the same state.  Returns
+    (gradients by leaf of each, the count of convolutions that took the
+    kernels, ms of each by CUDA events)."""
+    import torch
+
+    from nhans_tpu_torch.utils.device import full_float32
+
+    from nhans_tpu_torch.nn import model as nn_model
+    from nhans_tpu_torch.nn.model import (NHANSNet, freq_weighted_mse,
+                                          hand_convs)
+
+    model = NHANSNet(model_cfg)
+    model.load_state_dict(weights)
+    model = model.to(dev).train()
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    g = torch.Generator(device=dev).manual_seed(seed)
+    W, C, F = (model_cfg.window_frames, model_cfg.context_frames,
+               model_cfg.num_features)
+    mixed = torch.randn(windows, W, F, generator=g, device=dev) - 4
+    ctx = [torch.randn(windows, C, F, generator=g, device=dev) - 4
+           for _ in range(2)]
+    target = mixed[:, W // 2] + 0.1 * torch.randn(
+        windows, F, generator=g, device=dev)
+
+    def run():
+        model.load_state_dict(state)
+        model.zero_grad(set_to_none=True)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        with hand_convs() as seen:
+            res = model(mixed, *ctx)
+            loss, _ = freq_weighted_mse(mixed[:, W // 2] + res, target)
+        loss.backward()
+        ev[1].record()
+        torch.cuda.synchronize()
+        return ({k: p.grad.detach().clone()
+                 for k, p in model.named_parameters()}, len(seen),
+                ev[0].elapsed_time(ev[1]))
+
+    real = nn_model._train_conv
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    try:
+        with full_float32():
+            run()                               # warm-up of both paths
+            hand, count, hand_ms = run()
+        nn_model._train_conv = lambda conv, x, fs=None: conv(x, fs)
+        torch.backends.cudnn.allow_tf32 = modules_tf32
+        torch.backends.cuda.matmul.allow_tf32 = modules_tf32
+        run()
+        modules, none, modules_ms = run()
+    finally:
+        nn_model._train_conv = real
+        torch.backends.cudnn.allow_tf32 = tf32[0]
+        torch.backends.cuda.matmul.allow_tf32 = tf32[1]
+    check(none == 0, "the modules' step sent convolutions to the kernels")
+    del model
+    torch.cuda.empty_cache()
+    return hand, modules, count, (hand_ms, modules_ms)
+
+
+def modules_flops(fn):
+    """torch's FLOP count of ``fn()`` with the training step's convolutions
+    on the modules: the count sees aten's convolutions and not the
+    hand-written kernels, which compute the same operations."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from nhans_tpu_torch.nn import model as nn_model
+
+    real = nn_model._train_conv
+    nn_model._train_conv = lambda conv, x, fs=None: conv(x, fs)
+    try:
+        with FlopCounterMode(display=False) as counter:
+            fn()
+    finally:
+        nn_model._train_conv = real
+    return counter.get_total_flops()
+
+
+def leaf_gaps(got, want):
+    """By leaf, ||got - want|| over the larger of ||want|| and the median
+    leaf's, as the benchmark's check takes its gradient gap."""
+    import torch
+
+    norms = {k: torch.linalg.vector_norm(v).item() for k, v in want.items()}
+    med = float(np.median(list(norms.values())))
+    return {k: torch.linalg.vector_norm(got[k] - want[k]).item()
+            / max(norms[k], med) for k in want}
 
 
 # phase 12: the optimizer kernel's bytes a value (gradient and parameter
@@ -2025,6 +2364,7 @@ def main() -> int:
     from nhans_tpu_torch.config import Config
     from nhans_tpu_torch.dsp import spectral as sp
     from nhans_tpu_torch.ops import _build, stft_cuda
+    from nhans_tpu_torch.ops.conv_wgrad import conv_wgrad
     from nhans_tpu_torch.ops.tower_conv import tower_conv
     from nhans_tpu_torch.ops.tower_epilogue import tower_epilogue
     from nhans_tpu_torch.tools.devtime import device_ms, sleep_cycles_per_ms
@@ -2204,7 +2544,7 @@ def main() -> int:
             f" on {smi}")
 
     # -- 4b, 4c. the main tower's epilogue and convolution kernels ----------
-    for name in ("tower_epilogue", "tower_conv"):
+    for name in ("tower_epilogue", "tower_conv", "conv_wgrad"):
         _, record = _build.load(name)
         say(f"[4b build] {os.path.relpath(record['path'], REPO)} in "
             f"{record['seconds']:.2f} s")
@@ -2215,7 +2555,8 @@ def main() -> int:
             check(spills is None or spills.groups() == ("0", "0"),
                   f"ptxas reports spills: {line}")
     epilogue_err, epilogue_timings = phase4b(dev, cycles_per_ms, smi)
-    conv_err, conv_timings = phase4c(dev, cycles_per_ms, smi)
+    conv_err, conv_timings, train_conv_err, train_conv_timings = phase4c(
+        dev, cycles_per_ms, smi)
 
     # -- 5. end to end, denoiser ---------------------------------------------
     rng = np.random.default_rng(5)
@@ -2465,10 +2806,8 @@ def main() -> int:
         dbanks = DeviceBanks(trainer.cfg, dev)
         idx = {k: torch.from_numpy(v).to(dev) for k, v in
                next(BankIndexLoader(dbanks, trainer.batch_utts)).items()}
-        with FlopCounterMode(display=False) as counter:
-            trainer.step_fn(trainer.state, dbanks.banks, idx,
-                            step_generator(0, 0))
-        flops = counter.get_total_flops()
+        flops = modules_flops(lambda: trainer.step_fn(
+            trainer.state, dbanks.banks, idx, step_generator(0, 0)))
         del dbanks
         say(f"[9 train] denoiser banked, full width, {trainer.batch_utts} "
             f"utterances x {trainer.cfg.data.slices_per_step} crops: losses "
@@ -2746,7 +3085,7 @@ def main() -> int:
         idxs = [{k: torch.from_numpy(v).to(dev) for k, v in
                  next(idx_loader).items()} for _ in range(STEP_RUNS)]
 
-        opt_launches = {}
+        opt_launches, conv_step_launches = {}, {}
 
         def step_run(name, alg="sgd", steps=STEP_RUNS, flops=False, **model):
             """(ms per step by CUDA events after 2 warm steps, peak GiB,
@@ -2764,14 +3103,13 @@ def main() -> int:
                 step_fn(state, dbanks.banks, idxs[i], step_generator(0, i))
             n_flops = 0
             if flops:
-                with FlopCounterMode(display=False) as counter:
-                    step_fn(state, dbanks.banks, idxs[1],
-                            step_generator(0, 1))
-                n_flops = counter.get_total_flops()
+                n_flops = modules_flops(lambda: step_fn(
+                    state, dbanks.banks, idxs[1], step_generator(0, 1)))
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             stft_cuda.log_spectrogram_kernel.launches = 0
             optimizer_update.launches = 0
+            conv_launches = (tower_conv.launches, conv_wgrad.launches)
             ev = [torch.cuda.Event(enable_timing=True)
                   for _ in range(steps + 1)]
             ev[0].record()
@@ -2783,6 +3121,19 @@ def main() -> int:
             launches = stft_cuda.log_spectrogram_kernel.launches
             check(launches == 4 * steps, f"{name}: {launches} kernel "
                   f"launches in {steps} steps")
+            # the training kernels a float32 step: the forward of the 16
+            # main-tower and 2 x 8 context-tower convolutions and the input
+            # gradient of 12 + 2 x 5 of them; the weight gradient of 32
+            conv_launches = (tower_conv.launches - conv_launches[0],
+                             conv_wgrad.launches - conv_launches[1])
+            conv_step_launches[name] = conv_launches
+            if model == {"compute_dtype": "float32"}:
+                check(conv_launches == (54 * steps, 32 * steps),
+                      f"{name}: {conv_launches} training convolution "
+                      f"launches in {steps} steps")
+            elif model.get("compute_dtype") == "bfloat16":
+                check(conv_launches == (0, 0), f"{name}: {conv_launches} "
+                      "training convolution launches in bfloat16")
             # sgd and Adam: one update and one sum of squares a step
             opt_launches[alg] = optimizer_update.launches
             check(opt_launches[alg] == 2 * steps, f"{name}: "
@@ -2816,6 +3167,31 @@ def main() -> int:
                 f"{rec['peak']:.2f} GiB; {rec['launches']} kernel launches; "
                 f"on {smi}")
         opt_timings, opt_values = optimizer_kernel(dev, cycles_per_ms, smi)
+
+        # the float32 step's gradients through the training kernels against
+        # the modules' (cuDNN, TF32 off), and the modules' in TF32
+        sep_weights = load_npz(SEPARATOR_NPZ)
+        hand, modules, hand_count, step_ms = hand_step(
+            dev, Config.separator().model, sep_weights)
+        tf32 = hand_step(dev, Config.separator().model, sep_weights,
+                         modules_tf32=True)[1]
+        gaps = leaf_gaps(hand, modules)
+        gaps_tf32 = leaf_gaps(tf32, modules)
+        worst = max(gaps, key=gaps.get)
+        check(hand_count == 24, f"{hand_count} convolutions took the "
+              "training kernels, not 24")
+        check(gaps[worst] <= STEP_GRAD_GAP, f"training kernels' gradient "
+              f"of {worst}: {gaps[worst]:.3g} from the modules'")
+        say(f"[12 hand step] separator, 64 windows, shipped weights: "
+            f"{hand_count} convolutions on the training kernels; forward "
+            f"and backward {step_ms[0]:.1f} ms, modules {step_ms[1]:.1f} ms "
+            f"(CUDA events); gradients against the modules' by leaf: worst "
+            f"{gaps[worst]:.3g} ({worst}), median "
+            f"{np.median(list(gaps.values())):.3g}; the modules in TF32: "
+            f"worst {max(gaps_tf32.values()):.3g}, median "
+            f"{np.median(list(gaps_tf32.values())):.3g}; on {smi}")
+        del hand, modules, tf32, sep_weights
+        torch.cuda.empty_cache()
 
         def worst_update(got_, want_, skip=()):
             """The largest max |diff| over max |delta| of any tensor but
@@ -3184,6 +3560,31 @@ def main() -> int:
                 "F.conv2d on the padded input, TF32 off; plain_ms: F.pad + "
                 "F.conv2d; max_abs_err: the worst error over phase 4c (a)'s "
                 "float32 bound (a ratio, 1 = at the bound)")})
+    for (name, d), t in train_conv_timings.items():
+        if "ms" not in t:
+            continue                  # a strided input gradient: cuDNN's
+        wgrad = d == "weight"
+        kernels.append({
+            "name": (f"{'conv_wgrad' if wgrad else 'tower_conv'} (training, "
+                     f"{name}, {d})"),
+            "route": "cuda",
+            "source": (f"nhans_tpu_torch/csrc/"
+                       f"{'conv_wgrad' if wgrad else 'tower_conv'}.cu"),
+            "replaces": "cuDNN's float32 convolution (no TPU kernel)",
+            "launches": conv_step_launches["float32 sgd"][int(wgrad)],
+            "max_abs_err": train_conv_err,
+            "ms": t["ms"], "plain_ms": None,
+            "bound_ms": t["bound_ms"], "bound_by": "operations",
+            "library_ms": t["library_ms"], "shape": t["shape"],
+            "note": (
+                f"launches: phase 12's last {STEP_RUNS} timed float32 sgd "
+                "steps, all training convolutions of the kernel (54 "
+                "tower_conv and 32 conv_wgrad a step); times: phase 4c (d), "
+                "[N, Cin, H, W, Cout, kernel, stride], 64 windows (the "
+                "context tower's run twice a step); library_ms: cuDNN's "
+                "float32 function as the modules run it, TF32 off; "
+                "max_abs_err: the worst error over phase 4c (c)'s float32 "
+                "bound (a ratio, 1 = at the bound)")})
     for name, t in opt_timings.items():
         kernels.append({
             "name": f"optimizer_update (training, {name})",

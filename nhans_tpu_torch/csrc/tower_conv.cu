@@ -1,18 +1,24 @@
-// The main tower's k x k convolutions in float32, for Hopper (sm_90a):
+// The towers' kh x kw convolutions in float32, for Hopper (sm_90a):
 // y = conv2d(pad(x, SAME pads), w, b, stride), NCHW, as a direct sum.
 //
 // A CondResBlock in inference (nhans_tpu_torch/nn/model.py) runs two of
-// these per block, sixteen per tower forward: k in {3, 4}, stride 1 or 2,
-// 1 to 512 input and 64 to 512 output channels.  It replaces no TPU
-// kernel: the JAX package leaves its convolutions to XLA.  It replaces
-// cuDNN's float32 choices at these shapes (FFT convolutions for the
-// stride-1 4 x 4 layers, sm80 implicit GEMMs for the rest), the SAME pad
-// copy before each convolution and the bias add after it.
+// these per block, sixteen per tower forward: k x k with k in {3, 4},
+// stride 1 or 2, 1 to 512 input and 64 to 512 output channels.  In
+// training (ops/tower_conv.py::TrainConv) the same kernel runs the
+// forward of both towers' 24 convolutions, the context tower's 8 x 4 ones
+// (stride (3, 2) or 1, 1 to 128 channels) and 4 x 4 ones (256 and 512
+// channels) among them, and the input gradient of the stride-1 ones as a
+// convolution of the output gradient with the weights rotated by 180
+// degrees.  It replaces no TPU kernel: the JAX package leaves its
+// convolutions to XLA.  It replaces cuDNN's float32 choices at these
+// shapes (FFT convolutions for the stride-1 4 x 4 layers, sm80 implicit
+// GEMMs and dgrad kernels for the rest), the SAME pad copy before each
+// convolution and the bias add after it.
 //
 // Arithmetic: float32 multiply-adds on the CUDA cores, no TF32, no FFT or
 // Winograd transform.  Every output sums all Cin * kh * kw products of
 // its window in two levels: the products of each run of kFold steps of
-// the K loop (64 to 72 of them, in the order input channel, kernel row,
+// the K loop (64 to 128 of them, in the order input channel, kernel row,
 // kernel column) into a partial sum, and the partial sums in order into
 // the accumulator; the bias is added last.  The result differs from
 // another float32 convolution only by the order of the sum, and lies
@@ -33,12 +39,13 @@
 // channels), and each row of K costs it four 16-byte shared-memory loads
 // for 64 FFMAs.  The tile follows (k, Cin, Cout): 64 x 256 for the 3 x 3
 // layers (the widest, so that each gathered input word feeds 256
-// channels), 128 x 128 for 4 x 4 layers of 128 channels, 256 x 64 for
-// those of 64, and a light 256 x 64 tile for the layer with one input
-// channel, which is bound by the bytes it stores.
+// channels), 128 x 128 for k x k layers of more than 64 output channels,
+// 256 x 64 for those of 64, and a light 256 x 64 tile for a layer with
+// one input channel, which is bound by the bytes it stores.
 //   * Input: a thread owns one position of the tile and, at each step of
 //     the K loop, the kh * kw taps of one or two input channels (2 or 4
-//     channels a step, 32 or 36 rows of K): it copies them with 4-byte
+//     channels a step, 32 or 36 rows of K; for 8 x 4, 1 or 2 channels, 32
+//     or 64 rows): it copies them with 4-byte
 //     cp.async from the NCHW input into the tile's im2col layout in
 //     shared memory ([K][BM], positions fastest, so a warp's copies read
 //     consecutive positions of one input row and write consecutive
@@ -50,7 +57,8 @@
 //     BK x BN tile arrives by 16-byte cp.async and is read as float4 runs
 //     of channels.
 //   * A ring of kStages tiles in shared memory: the copies of step s + 3
-//     are in flight while step s is computed.
+//     are in flight while step s is computed (three tiles where four do
+//     not fit: 8 x 4 at 128 x 128, 64 rows of K a step).
 //   * The tile goes out through shared memory: each thread writes its
 //     accumulators plus the bias (conv2's; conv1 has none) as float4 runs
 //     of positions, then each warp stores whole channel rows of the tile,
@@ -65,6 +73,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kStages = 4;  // the ring of tiles in shared memory
 constexpr int kFold = 2;    // steps whose products are summed apart
+constexpr int kMaxSmem = 232448;  // a block's shared memory on sm_90
 
 struct Params {
   const float* x;     // [N, Cin, H, W]
@@ -110,20 +119,27 @@ __device__ __forceinline__ void wait_copies() {
 
 // kLight: a layer of one input channel (K = kh * kw), bound by its output
 // bytes: one channel a step, the products summed straight into the
-// accumulators (K is 16), a two-slot ring, and few enough registers for
-// two blocks on an SM, so that one block's stores overlap another's work.
+// accumulators (K is 16 or 32), a two-slot ring, and few enough registers
+// for two blocks on an SM, so that one block's stores overlap another's
+// work.
 template <int KH, int KW, int BN, bool kLight>
 struct Tile {
   static constexpr int kTaps = KH * KW;
   static constexpr int BM = kThreads * 64 / BN;     // 8 x 8 per thread
   static constexpr int kGroups = kThreads / BM;     // threads per position
-  // input channels a step: 32 to 36 rows of K (light: kh * kw rows)
-  static constexpr int kChannels = kLight ? kGroups : kTaps >= 16 ? 2 : 4;
+  // input channels a step: 32 to 36 rows of K (light: kh * kw rows; 8 x 4:
+  // one channel a thread)
+  static constexpr int kChannels = kLight || kTaps >= 32 ? kGroups
+                                   : kTaps >= 16          ? 2
+                                                          : 4;
   static constexpr int kOwn = kChannels / kGroups;  // channels a thread copies
   static constexpr int BK = kChannels * kTaps;
   static constexpr int kWarpsM = BM / 32;           // warp tile 32 x 64
-  static constexpr int kRing = kLight ? 2 : kStages;
   static constexpr int kStageFloats = BK * (BM + BN);
+  static constexpr int kRing =
+      kLight ? 2
+      : kStages * kStageFloats * 4 <= kMaxSmem ? kStages
+                                               : kMaxSmem / (kStageFloats * 4);
   static constexpr int kOutStride = BM + 4;         // the staged output tile
   static constexpr int kSmemBytes =
       (kRing * kStageFloats > BN * kOutStride ? kRing * kStageFloats
@@ -323,29 +339,33 @@ int launch(const Params& p, cudaStream_t stream) {
 
 // y [N, Cout, Ho, Wo] = conv2d(x [N, Cin, H, W] padded by pt rows above
 // and pl columns left (and with zeros below and right as far as Ho, Wo
-// reach), w, bias, stride (sh, sw)); wt is w [Cout, Cin, k, k] as
-// [Cin * k * k, ldw], ldw a multiple of 4 not under Cout, the columns past
-// Cout zero, 16-byte aligned.  k is 3 or 4; bias null for none; all
-// float32, contiguous, on the device.  Returns the cudaError_t of the
-// launch (0 = cudaSuccess).
+// reach), w, bias, stride (sh, sw)); wt is w [Cout, Cin, kh, kw] as
+// [Cin * kh * kw, ldw], ldw a multiple of 4 not under Cout, the columns
+// past Cout zero, 16-byte aligned.  (kh, kw) is (3, 3), (4, 4) or (8, 4);
+// bias null for none; all float32, contiguous, on the device.  Returns the
+// cudaError_t of the launch (0 = cudaSuccess).
 extern "C" int nhans_tower_conv(const float* x, const float* wt,
                                 const float* bias, float* y, int N, int Cin,
                                 int H, int W, int Cout, int ldw, int Ho,
-                                int Wo, int k, int sh, int sw, int pt,
-                                int pl, void* stream) {
+                                int Wo, int kh, int kw, int sh, int sw,
+                                int pt, int pl, void* stream) {
   if (N <= 0 || Cin <= 0 || H <= 0 || W <= 0 || Cout <= 0 || ldw < Cout ||
       ldw % 4 || Ho <= 0 || Wo <= 0 || sh <= 0 || sw <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Params p{x,    wt,  bias, y,  static_cast<int64_t>(N) * Ho * Wo,
                  Cin,  H,   W,    Cout, ldw, Ho, Wo, sh, sw, pt, pl};
   auto s = static_cast<cudaStream_t>(stream);
-  // the tile from (k, Cin, Cout): 4 x 4 with one input channel, the light
-  // 256 x 64 tile; 4 x 4 to 64 channels, 256 x 64, and to more, 128 x 128;
-  // 3 x 3, 64 x 256 (columns past Cout are computed and not stored)
-  if (k == 4)
+  // the tile from (kh, kw, Cin, Cout): one input channel to at most 64,
+  // the light 256 x 64 tile; to 64 channels, 256 x 64, and to more, 128 x
+  // 128; 3 x 3, 64 x 256 (columns past Cout are computed and not stored)
+  if (kh == 4 && kw == 4)
     return Cin == 1 && Cout <= 64 ? launch<4, 4, 64, true>(p, s)
            : Cout <= 64           ? launch<4, 4, 64, false>(p, s)
                                   : launch<4, 4, 128, false>(p, s);
-  if (k == 3) return launch<3, 3, 256, false>(p, s);
+  if (kh == 8 && kw == 4)
+    return Cin == 1 && Cout <= 64 ? launch<8, 4, 64, true>(p, s)
+           : Cout <= 64           ? launch<8, 4, 64, false>(p, s)
+                                  : launch<8, 4, 128, false>(p, s);
+  if (kh == 3 && kw == 3) return launch<3, 3, 256, false>(p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

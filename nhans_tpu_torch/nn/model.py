@@ -38,7 +38,8 @@ from torch.utils.checkpoint import checkpoint
 from nhans_tpu_torch.config import ModelConfig
 from nhans_tpu_torch.nn.blocks import (BatchNorm, Conv, Dense, frozen_stats,
                                        same_pads)
-from nhans_tpu_torch.ops.tower_conv import KERNEL_SIZES, tower_conv
+from nhans_tpu_torch.ops.tower_conv import (KERNEL_SHAPES, TrainConv,
+                                            tower_conv)
 from nhans_tpu_torch.ops.tower_epilogue import tower_epilogue
 from nhans_tpu_torch.utils.device import to_device
 
@@ -69,7 +70,8 @@ class PositionalMLP(nn.Module):
 
 class ContextBlock(nn.Module):
     """Conv-BN-ReLU-conv residual block with a strided 1x1 shortcut when
-    the channel count changes."""
+    the channel count changes.  ``conv1`` and ``conv2`` run through
+    ``_train_conv``."""
 
     def __init__(self, in_features: int, features: int, kernel: Sequence[int],
                  strides: Sequence[int], bn_eps: float = 1e-3,
@@ -87,8 +89,8 @@ class ContextBlock(nn.Module):
         self.bn_out = BatchNorm(features, bn_eps, bn_decay, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        path1 = F.relu(self.bn1(self.conv1(x)))
-        path1 = self.conv2(path1)
+        path1 = F.relu(self.bn1(_train_conv(self.conv1, x)))
+        path1 = _train_conv(self.conv2, path1)
         path2 = x if self.transform is None else self.transform(x)
         return F.relu(self.bn_out(path1 + path2))
 
@@ -206,9 +208,10 @@ class CondResBlock(nn.Module):
         if not (self.training or torch.is_grad_enabled()):
             return self._fused(x, emb_a, emb_b)
         fv, fv1 = self.freq_valid or None, self.freq_out or None
-        path1 = self.inject1(self.conv1(x, fv), emb_a, emb_b)
+        path1 = self.inject1(_train_conv(self.conv1, x, fv), emb_a, emb_b)
         path1 = self._mask(F.relu(self.bn1(path1)))
-        path1 = self.inject2(self.conv2(path1, fv1), emb_a, emb_b)
+        path1 = self.inject2(_train_conv(self.conv2, path1, fv1), emb_a,
+                             emb_b)
         path2 = x if self.transform is None else self.transform(x)
         return self._mask(F.relu(self.bn_out(path1 + path2)))
 
@@ -228,19 +231,56 @@ class CondResBlock(nn.Module):
                               valid=self.freq_out)
 
 
+def _kernel_takes(conv: Conv, x: torch.Tensor) -> bool:
+    """Whether the input and the compute dtype are float32, ``conv`` holds
+    all its output channels and its kernel is one the kernels take (every
+    k x k one of both published towers)."""
+    return (x.dtype == torch.float32 and conv.dtype == torch.float32
+            and conv.shard is None and conv.kernel_size in KERNEL_SHAPES)
+
+
 def _conv(conv: Conv, x: torch.Tensor,
           freq_size: Optional[int]) -> torch.Tensor:
-    """``conv(x, freq_size)``, through ``ops.tower_conv`` where the input
-    and the compute dtype are float32, ``conv`` holds all its output
-    channels and its kernel is one the kernel takes (every block's of the
-    published tower)."""
-    kh, kw = conv.kernel_size
-    if (x.dtype != torch.float32 or conv.dtype != torch.float32
-            or conv.shard is not None or kh != kw
-            or kh not in KERNEL_SIZES):
+    """``conv(x, freq_size)``, through ``ops.tower_conv`` where
+    ``_kernel_takes`` holds."""
+    if not _kernel_takes(conv, x):
         return conv(x, freq_size)
     return tower_conv(x, conv.w, conv.b, conv.strides,
                       conv.pads(x, freq_size))
+
+
+# the sets that ``hand_convs`` collects into, innermost last
+_COLLECTING: list = []
+# the devices whose tensors ``_train_conv`` sends to the kernels
+KERNEL_DEVICES = ("cuda",)
+
+
+@contextlib.contextmanager
+def hand_convs():
+    """Collects, into the set it yields, the convolutions that
+    ``_train_conv`` sends to the kernels while inside."""
+    seen: set = set()
+    _COLLECTING.append(seen)
+    try:
+        yield seen
+    finally:
+        _COLLECTING.remove(seen)
+
+
+def _train_conv(conv: Conv, x: torch.Tensor,
+                freq_size: Optional[int] = None) -> torch.Tensor:
+    """``conv(x, freq_size)``; with grad on, on a CUDA tensor, where
+    ``_kernel_takes`` holds, through ``ops.tower_conv.TrainConv``: the
+    forward and the weight and bias gradients on the hand-written kernels,
+    and the input gradient too at stride 1.  Elsewhere the module runs as
+    it is."""
+    if not (torch.is_grad_enabled() and x.device.type in KERNEL_DEVICES
+            and _kernel_takes(conv, x)):
+        return conv(x, freq_size)
+    for seen in _COLLECTING:
+        seen.add(conv)
+    return TrainConv.apply(x, conv.w, conv.b, conv.strides,
+                           conv.pads(x, freq_size))
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:

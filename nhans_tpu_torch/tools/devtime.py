@@ -22,6 +22,7 @@ _CUPTI_ROWS = ("Command Buffer Full", "Buffer Flush", "Activity Buffer Request")
 _KINDS = (("spectrogram kernel", ("log_spectrogram",)),
           ("tower epilogue kernel", ("tower_epilogue",)),
           ("tower convolution kernel", ("tower_conv",)),
+          ("weight-gradient kernel", ("conv_wgrad",)),
           ("optimizer kernel", ("optimizer_update",)),
           ("convolution (cuDNN)", ("cudnn", "xmma", "implicit", "winograd",
                                    "fft", "conv", "sm90_", "cutlass",

@@ -20,7 +20,10 @@ over the model group.
 While the profiler runs or ``spans.recording()`` is on, a step records
 the span ``train.step`` (``utils/spans.py``; ``id`` the step number,
 timed on the parameters' device) holding ``train.batch`` (the banked
-gather and ``make_train_batch``), ``train.forward`` (``train_loss``),
+gather and ``make_train_batch``), ``train.forward`` (``train_loss``;
+counts ``hand_convs``, the convolutions of the model that ran on the
+hand-written training kernels, ``nn/model.py::_train_conv``: the 24 k x k
+ones of both towers on a card in float32, none on the CPU or in bfloat16),
 ``train.backward`` and ``train.update`` (the gradients, their all-reduce,
 the optimizer's in-place update and the global norm; counts ``params``,
 the values of the parameters, and ``fused_params``, those that
@@ -40,7 +43,7 @@ import torch.distributed as dist
 from nhans_tpu_torch.config import Config
 from nhans_tpu_torch.data.pipeline import make_train_batch
 from nhans_tpu_torch.models import init_variables
-from nhans_tpu_torch.nn.model import NHANSNet, freq_weighted_mse
+from nhans_tpu_torch.nn.model import NHANSNet, freq_weighted_mse, hand_convs
 from nhans_tpu_torch.parallel.mesh import all_reduce_mean
 from nhans_tpu_torch.parallel.sharding_rules import model_shards, shard_model
 from nhans_tpu_torch.train.optim import (Optimizer, make_optimizer,
@@ -204,9 +207,11 @@ def make_train_step(cfg: Config, model: NHANSNet, tx: Optimizer,
             if rows is not None:  # in examples: B utterances x K crops
                 n = ex["mixed"].shape[0]
                 rows = (mesh.data_index * n, mesh.data * n)
-            with spans.span("train.forward", id=state.step, device=device):
+            with spans.span("train.forward", id=state.step,
+                            device=device) as s, hand_convs() as convs:
                 loss = train_loss(cfg, model, ex,
                                   generator if noise else None, mesh, rows)
+                s.count(hand_convs=len(convs))
             with spans.span("train.backward", id=state.step, device=device):
                 loss.backward()
             with spans.span("train.update", id=state.step,

@@ -39,7 +39,8 @@ def test_every_module_imports_with_jax_blocked():
     assert r.returncode == 0, r.stderr
     # config, version, 12 subpackages,
     # dsp/{spectral,mixing,windowing},
-    # ops/{_build,stft_cuda,tower_conv,tower_epilogue,optimizer_update},
+    # ops/{_build,stft_cuda,tower_conv,tower_epilogue,optimizer_update,
+    #      conv_wgrad},
     # nn/{blocks,model},
     # compat/{weights,tf_bundle,tf_import,orbax}, infer/enhance,
     # utils/{device,wavio,tb_events,watchdog,scoring,pesq_np,native,zstd,
@@ -51,7 +52,7 @@ def test_every_module_imports_with_jax_blocked():
     # tools/{devtime,profile_serving,profile_training,spectrogram_anatomy,
     #        eval_checkpoints,ckpt_npz,ckpt_average,validate_demo,
     #        train_supervisor}, parallel/{mesh,sharding_rules}
-    assert int(r.stdout.strip()) == 68
+    assert int(r.stdout.strip()) == 69
 
 
 _RUN_BLOCKED = r"""

@@ -98,7 +98,7 @@ def test_checks_refuse_what_the_kernel_does_not_take():
         (x, w, torch.randn(16)[::2], st, pads),
         (x[0], w, b, st, pads),                             # shapes
         (x, w[:, :3].contiguous(), b, st, pads),
-        (x, w[..., :3].contiguous(), b, st, pads),          # kh != kw
+        (x, w[..., :3].contiguous(), b, st, pads),          # 4 x 3
         (x, torch.randn(8, 4, 5, 5), b, st, pads),          # k = 5
         (x, w, b[:4], st, pads),
         (x, w, b, (0, 1), pads),
@@ -166,9 +166,9 @@ def test_fused_block_routes_its_convolutions_and_equals_the_modules(
 
 # -- the CUDA kernel, emulated -----------------------------------------------
 
-def _tile(k, cin, cout):
+def _tile(kh, kw, cin, cout):
     """(BN, light) as nhans_tower_conv chooses them."""
-    if k == 4:
+    if (kh, kw) in ((4, 4), (8, 4)):
         return (64, True) if cin == 1 and cout <= 64 else (
             (64, False) if cout <= 64 else (128, False))
     return 256, False
@@ -184,11 +184,12 @@ def _emulate(x, w, b, stride, pads):
     sh, sw = stride
     pl, pr, pt, pb = pads
     Ho, Wo = tc.out_size(H, KH, sh, pt, pb), tc.out_size(W, KW, sw, pl, pr)
-    BN, light = _tile(KH, Cin, Cout)
+    BN, light = _tile(KH, KW, Cin, Cout)
     threads, taps_n = 256, KH * KW
     BM = threads * 64 // BN
     groups = threads // BM
-    channels = groups if light else (2 if taps_n >= 16 else 4)
+    channels = (groups if light or taps_n >= 32 else
+                2 if taps_n >= 16 else 4)
     own, BK = channels // groups, channels * taps_n
     K, P, M, HW = Cin * taps_n, Ho * Wo, N * Ho * Wo, H * W
     xf = x.double().numpy().ravel()
@@ -247,6 +248,9 @@ def _emulate(x, w, b, stride, pads):
 
 
 @pytest.mark.parametrize("cin,cout,k,s,H,W,width", [
+    (1, 64, (8, 4), (3, 2), 14, 13, 13),  # 8 x 4: the light tile
+    (3, 64, (8, 4), 1, 9, 13, 13),        # 8 x 4, 256 x 64, 1 channel a step
+    (3, 72, (8, 4), (3, 2), 14, 11, 11),  # 8 x 4, 128 x 128, 3 stages
     (1, 64, 4, 1, 7, 13, 13),       # the light tile
     (1, 8, 4, 1, 5, 9, 16),         # light, lane-padded, Cout < BN
     (3, 64, 4, 1, 9, 13, 13),       # 256 x 64
@@ -259,13 +263,15 @@ def _emulate(x, w, b, stride, pads):
     (9, 256, 3, 2, 9, 51, 64),      # a stage-3 input, lane-padded
 ])
 def test_kernel_emulation_is_the_convolution(cin, cout, k, s, H, W, width):
-    g = torch.Generator().manual_seed(cin * cout + k)
+    kh, kw = k if isinstance(k, tuple) else (k, k)
+    sh, sw = s if isinstance(s, tuple) else (s, s)
+    g = torch.Generator().manual_seed(cin * cout + kh)
     x = torch.randn(3, cin, H, width, generator=g)
-    w = torch.randn(cout, cin, k, k, generator=g)
+    w = torch.randn(cout, cin, kh, kw, generator=g)
     b = torch.randn(cout, generator=g)
-    st = (s, s)
-    fl, fh, _ = same_pads(W, k, s)
-    tl, th, _ = same_pads(H, k, s)
+    st = (sh, sw)
+    fl, fh, _ = same_pads(W, kw, sw)
+    tl, th, _ = same_pads(H, kh, sh)
     pads = (fl, fh, tl, th)
     got = _emulate(x, w, b, st, pads)
     ref = F.conv2d(F.pad(x.double(), pads), w.double(), b.double(),
@@ -354,8 +360,9 @@ def test_kernel_non_finite_values_as_f_conv2d_on_card(conv):
 @pytest.mark.gpu
 @pytest.mark.parametrize("windows", [2048, 1])
 def test_tower_forward_launches_16_convolutions_on_card(windows):
-    """One inference forward of the shipped tower: one kernel launch per
-    k x k convolution, and none with grad on."""
+    """One forward of the shipped tower: one kernel launch per k x k
+    convolution, in inference and, through the training convolutions
+    (nn/model.py::_train_conv), with grad on."""
     _cuda()
     model = NHANSNet(Config.denoiser().model).cuda().eval()
     model.requires_grad_(False)
@@ -364,7 +371,7 @@ def test_tower_forward_launches_16_convolutions_on_card(windows):
     blocks = len(Config.denoiser().model.main_blocks)
     for mode, launches in ((torch.inference_mode, 2 * blocks),
                            (torch.no_grad, 2 * blocks),
-                           (torch.enable_grad, 0)):
+                           (torch.enable_grad, 2 * blocks)):
         before = tc.tower_conv.launches
         with mode():
             model(x, emb_a=e, emb_b=e)
