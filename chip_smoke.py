@@ -43,9 +43,13 @@ through csrc/conv_wgrad.cu) against float64 and cuDNN, timed beside it
   Adam (2 launches a step of the optimizer kernel, csrc/optimizer_update.cu,
   which is held bit for bit to its plain version at the separator's 393
   tensors and timed against it; in float32 54 launches a step of the
-  convolution kernel and 32 of the weight-gradient kernel, none in
-  bfloat16), a float32 forward and backward of the separator through the
-  training convolutions against the modules' gradients, leaf by leaf,
+  convolution kernel and 32 of the weight-gradient kernel, and 32 forward
+  and 32 backward calls of the epilogue kernels, csrc/train_epilogue.cu,
+  which are held to their plain version at the step's 24 output shapes,
+  bit for bit from run to run, and timed against it and the modules; none
+  in bfloat16), a float32 forward and backward of the separator through
+  the training convolutions and epilogues against the modules'
+  gradients, leaf by leaf,
   with and without --remat (whose step must equal the plain one)
   and with --freq_pad_to 256; serving with NHANS_FREQ_PAD=256 against the
   native geometry, with its RTF; and ``nhans_tpu_torch.cli.train --dtype
@@ -2171,18 +2175,21 @@ def hand_step(dev, model_cfg, weights, windows=TRAIN_WINDOWS, seed=23,
               modules_tf32=False):
     """One training forward and backward of the model at full width on
     ``windows`` random windows and their contexts, from ``weights``, TF32
-    off: once through the hand-written training convolutions and once
-    through the modules (``nn/model.py::_train_conv`` replaced by the module
-    call; in TF32 with ``modules_tf32``), from the same state.  Returns
-    (gradients by leaf of each, the count of convolutions that took the
-    kernels, ms of each by CUDA events)."""
+    off: once through the hand-written training convolutions and
+    epilogues and once through the modules (``nn/model.py::_train_conv``
+    replaced by the module call and ``_train_epilogue`` by
+    ``_epilogue_modules``; in TF32 with ``modules_tf32``), from the same
+    state.  Returns
+    (gradients by leaf of each, the counts of convolutions and of
+    BatchNorms whose epilogues took the kernels, ms of each by CUDA
+    events)."""
     import torch
 
     from nhans_tpu_torch.utils.device import full_float32
 
     from nhans_tpu_torch.nn import model as nn_model
     from nhans_tpu_torch.nn.model import (NHANSNet, freq_weighted_mse,
-                                          hand_convs)
+                                          hand_convs, hand_epilogues)
 
     model = NHANSNet(model_cfg)
     model.load_state_dict(weights)
@@ -2202,17 +2209,17 @@ def hand_step(dev, model_cfg, weights, windows=TRAIN_WINDOWS, seed=23,
         model.zero_grad(set_to_none=True)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
-        with hand_convs() as seen:
+        with hand_convs() as seen, hand_epilogues() as epilogues:
             res = model(mixed, *ctx)
             loss, _ = freq_weighted_mse(mixed[:, W // 2] + res, target)
         loss.backward()
         ev[1].record()
         torch.cuda.synchronize()
         return ({k: p.grad.detach().clone()
-                 for k, p in model.named_parameters()}, len(seen),
-                ev[0].elapsed_time(ev[1]))
+                 for k, p in model.named_parameters()},
+                (len(seen), len(epilogues)), ev[0].elapsed_time(ev[1]))
 
-    real = nn_model._train_conv
+    real = nn_model._train_conv, nn_model._train_epilogue
     tf32 = (torch.backends.cudnn.allow_tf32,
             torch.backends.cuda.matmul.allow_tf32)
     try:
@@ -2220,15 +2227,17 @@ def hand_step(dev, model_cfg, weights, windows=TRAIN_WINDOWS, seed=23,
             run()                               # warm-up of both paths
             hand, count, hand_ms = run()
         nn_model._train_conv = lambda conv, x, fs=None: conv(x, fs)
+        nn_model._train_epilogue = nn_model._epilogue_modules
         torch.backends.cudnn.allow_tf32 = modules_tf32
         torch.backends.cuda.matmul.allow_tf32 = modules_tf32
         run()
         modules, none, modules_ms = run()
     finally:
-        nn_model._train_conv = real
+        nn_model._train_conv, nn_model._train_epilogue = real
         torch.backends.cudnn.allow_tf32 = tf32[0]
         torch.backends.cuda.matmul.allow_tf32 = tf32[1]
-    check(none == 0, "the modules' step sent convolutions to the kernels")
+    check(none == (0, 0), "the modules' step sent convolutions or "
+          "epilogues to the kernels")
     del model
     torch.cuda.empty_cache()
     return hand, modules, count, (hand_ms, modules_ms)
@@ -2350,6 +2359,207 @@ def optimizer_kernel(dev, cycles_per_ms, smi):
     del params, grads
     torch.cuda.empty_cache()
     return timings, values
+
+
+def epilogue_shapes(model_cfg, windows=TRAIN_WINDOWS):
+    """The 24 epilogues of a training step of ``windows`` windows, one
+    after each of ``train_convs``: (name, N, C, H, W, tables, residual,
+    calls) of each, H x W its convolution's output, ``tables`` for the main
+    tower's conditioning, ``residual`` after a block's second convolution,
+    ``calls`` its runs a step (the context tower's 2)."""
+    from nhans_tpu_torch.nn.blocks import same_pads
+
+    return [(name, N, cout, same_pads(H, kh, sh)[2], same_pads(W, kw, sw)[2],
+             name.startswith("resblock"), bias, calls)
+            for name, N, _, cout, (kh, kw), (sh, sw), H, W, bias, calls
+            in train_convs(model_cfg, windows)]
+
+
+def epilogue_inputs(shape, dev, seed):
+    """Random y, residual (or None), the tables a, b [N, C], t [H, C],
+    f [W, C] (or Nones), a BatchNorm in training with random gamma, beta
+    and population statistics, and an output gradient, float32, for one
+    of ``epilogue_shapes``."""
+    import torch
+
+    from nhans_tpu_torch.nn.blocks import BatchNorm
+
+    _, N, C, H, W, tables, residual, _ = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*size, scale=1.0, shift=0.0):
+        return torch.randn(*size, generator=g, device=dev) * scale + shift
+
+    y = rand(N, C, H, W, scale=2.0, shift=0.5)
+    r = rand(N, C, H, W) if residual else None
+    tabs = ((rand(N, C), rand(N, C), rand(H, C, scale=0.3),
+             rand(W, C, scale=0.3)) if tables else (None,) * 4)
+    bn = BatchNorm(C).to(dev).train()
+    with torch.no_grad():
+        bn.gamma.copy_(rand(C, scale=0.5, shift=1.0))
+        bn.beta.copy_(rand(C, scale=0.5))
+        bn.pop_mean.copy_(rand(C))
+        bn.pop_variance.copy_(rand(C).abs() + 0.5)
+    return y, r, tabs, bn, rand(N, C, H, W)
+
+
+# phase 12: the training epilogue's least transfers of an output element
+# (y in, out, dout in, the saved v in, dy out), a residual's one more
+EPILOGUE_TRANSFERS = 5
+# phase 12: the kernels against the plain version (the gpu test's bars):
+# relative and absolute error of the output, the moments and the
+# population statistics, relative by norm of each gradient
+EPILOGUE_TOL = {"out": (1e-6, 1e-6), "mom": (1e-12, 1e-9),
+                "stats": (1e-6, 1e-7), "grad": 1e-5}
+
+
+def _within(got, want, rtol, atol):
+    """The largest |got - want| over atol + rtol |want|: 1 at the bar."""
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def epilogue_kernels(dev, cycles_per_ms, smi):
+    """Training's epilogue kernels (csrc/train_epilogue.cu) at the 24
+    output shapes of a separator step of TRAIN_WINDOWS windows, random
+    inputs:
+
+    (a) the forward and backward through ``train_epilogue_forward`` and
+        ``train_epilogue_backward``, one launch of each a call, twice on
+        the same card tensors: equal bit for bit, the population
+        statistics too; against ``train_epilogue_forward_plain`` and
+        ``train_epilogue_backward_plain`` on the same tensors (sums in
+        another order): v equal, the rest within EPILOGUE_TOL;
+    (b) device time of the kernels' forward and of their backward, warm,
+        against the plain version's forward and backward and the
+        modules' (the broadcast adds, ``BatchNorm`` in training and ReLU
+        under autograd, TF32 off); the bound is 4 x (5 + r) bytes an
+        output element at the card's bandwidth.
+    Returns (timings by shape name, with ``calls`` a step; the worst
+    error of (a) over its bar, 1 at the bar)."""
+    import torch
+
+    from nhans_tpu_torch.config import Config
+    from nhans_tpu_torch.ops import train_epilogue as te
+    from nhans_tpu_torch.tools.devtime import device_ms
+    from nhans_tpu_torch.utils.device import full_float32
+
+    timings, worst = {}, 0.0
+    for i, shape in enumerate(epilogue_shapes(Config.separator().model)):
+        name, N, C, H, W, tables, residual, calls = shape
+        y, r, tabs, bn, dout = epilogue_inputs(shape, dev, 240 + i)
+        g, be = bn.gamma.detach(), bn.beta.detach()
+        pops = [(bn.pop_mean.clone(), bn.pop_variance.clone())
+                for _ in range(3)]
+
+        def forward(pm, pv):
+            return te.train_epilogue_forward(y, r, *tabs, g, be, pm, pv,
+                                             bn.eps, bn.decay)
+
+        def backward(saved):
+            return te.train_epilogue_backward(dout, saved[1], saved[2], g,
+                                              be, tables)
+
+        # (a)
+        runs = []
+        for pm, pv in pops[:2]:
+            before = (te.train_epilogue_forward.launches,
+                      te.train_epilogue_backward.launches)
+            fwd = forward(pm, pv)
+            runs.append((fwd, backward(fwd)))
+            launches = (te.train_epilogue_forward.launches - before[0],
+                        te.train_epilogue_backward.launches - before[1])
+            check(launches == (1, 1), f"train_epilogue {name}: {launches} "
+                  "forward and backward launches for one call")
+        torch.cuda.synchronize()
+        (fwd, bwd), again = runs
+        for x, z in zip(fwd + bwd + pops[0], again[0] + again[1] + pops[1]):
+            check((x is None and z is None) or torch.equal(x, z),
+                  f"train_epilogue {name}: two runs differ")
+        pfwd = te.train_epilogue_forward_plain(y, r, *tabs, g, be, *pops[2],
+                                               bn.eps, bn.decay)
+        pbwd = te.train_epilogue_backward_plain(dout, pfwd[1], pfwd[2], g,
+                                                be, tables)
+        check(torch.equal(fwd[1], pfwd[1]), f"train_epilogue {name}: v "
+              "differs from the plain version")
+        gaps = {"out": _within(fwd[0], pfwd[0], *EPILOGUE_TOL["out"]),
+                "mom": _within(fwd[2], pfwd[2], *EPILOGUE_TOL["mom"]),
+                "stats": max(_within(x, z, *EPILOGUE_TOL["stats"])
+                             for x, z in zip(pops[0], pops[2]))}
+        for what, x, z in zip(("dy", "da", "dt", "df", "dgamma", "dbeta"),
+                              bwd, pbwd):
+            check((x is None) == (z is None), f"train_epilogue {name}: "
+                  f"{what} on one side only")
+            if z is not None:
+                scale = max(torch.linalg.vector_norm(z).item(),
+                            z.abs().max().item(), 1e-30)
+                gaps[what] = (torch.linalg.vector_norm(x - z).item()
+                              / (EPILOGUE_TOL["grad"] * scale))
+        at = max(gaps, key=gaps.get)
+        check(gaps[at] <= 1.0, f"train_epilogue {name}: {at} at "
+              f"{gaps[at]:.3g} of its bar from the plain version")
+        worst = max(worst, gaps[at])
+        del runs, again, pfwd, pbwd
+        # (b)
+        leaves = [x if x is None else x.clone().requires_grad_()
+                  for x in (y, r) + tuple(tabs)]
+
+        def modules():
+            for x in leaves:
+                if x is not None:
+                    x.grad = None
+            bn.zero_grad(set_to_none=True)
+            yl, rl, a, b, t_, f = leaves
+            v = yl
+            if a is not None:
+                v = (v + a[:, :, None, None] + b[:, :, None, None]
+                     + t_.t()[None, :, :, None] + f.t()[None, :, None, :])
+            if rl is not None:
+                v = v + rl
+            torch.relu(bn(v)).backward(dout)
+
+        def plain():
+            p = te.train_epilogue_forward_plain(y, r, *tabs, g, be, *pops[2],
+                                                bn.eps, bn.decay)
+            te.train_epilogue_backward_plain(dout, p[1], p[2], g, be, tables)
+
+        fns = {"forward_ms": lambda: forward(*pops[0]),
+               "backward_ms": lambda: backward(fwd),
+               "plain_ms": plain, "library_ms": modules}
+        reps = {"forward_ms": 20, "backward_ms": 20, "plain_ms": 3,
+                "library_ms": 10}
+        t = {}
+        with full_float32():
+            for key, fn in fns.items():
+                t[key], ahead = device_ms(fn, cycles_per_ms, reps=reps[key],
+                                          warmup=2)
+                check(ahead or key == "plain_ms", f"train_epilogue {name} "
+                      f"{key}: the host did not run ahead")
+        t["ms"] = t["forward_ms"] + t["backward_ms"]
+        nbytes = 4 * (EPILOGUE_TRANSFERS + residual) * y.numel()
+        t.update(bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes",
+                 calls=calls, shape=[N, C, H, W, int(tables), int(residual)],
+                 err=gaps[at])
+        timings[name] = t
+        say(f"[12 epilogue] {name} [{N}, {C}, {H}, {W}] tables {tables:d} "
+            f"residual {residual:d}: two runs bit for bit, worst "
+            f"{gaps[at]:.3g} of the bar ({at}) from the plain version; "
+            f"device ms, warm: forward {t['forward_ms']:.4f}, backward "
+            f"{t['backward_ms']:.4f}, plain {t['plain_ms']:.4f}, modules "
+            f"{t['library_ms']:.4f}; bound {t['bound_ms']:.4f} "
+            f"({100 * t['bound_ms'] / t['ms']:.1f} % of it)")
+        del y, r, tabs, bn, dout, fwd, bwd, leaves, fns
+        torch.cuda.empty_cache()
+    step = {k: sum(t[k] * t["calls"] for t in timings.values())
+            for k in ("forward_ms", "backward_ms", "ms", "plain_ms",
+                      "library_ms", "bound_ms")}
+    say(f"[12 epilogue] a step's 32 epilogue calls ({TRAIN_WINDOWS} windows, "
+        f"the context tower's twice), device ms: kernels {step['ms']:.3f} "
+        f"(forward {step['forward_ms']:.3f}, backward "
+        f"{step['backward_ms']:.3f}), {100 * step['bound_ms'] / step['ms']:.1f}"
+        f" % of the bound {step['bound_ms']:.3f}; plain {step['plain_ms']:.3f};"
+        f" modules {step['library_ms']:.3f}; worst error {worst:.3g} of its "
+        f"bar; on {smi}")
+    return timings, worst
 
 
 def main() -> int:
@@ -3070,7 +3280,8 @@ def main() -> int:
                 for k, v in errs.items()))
 
         # -- 12. step time and memory: float32 and bfloat16, sgd and Adam,
-        # the optimizer kernel, remat, the padded tower ---------------------
+        # the optimizer and epilogue kernels, remat, the padded tower -------
+        from nhans_tpu_torch.ops import train_epilogue as te
         from nhans_tpu_torch.ops.optimizer_update import optimizer_update
         from nhans_tpu_torch.train.step import (create_state, make_tx,
                                                 state_of)
@@ -3085,7 +3296,7 @@ def main() -> int:
         idxs = [{k: torch.from_numpy(v).to(dev) for k, v in
                  next(idx_loader).items()} for _ in range(STEP_RUNS)]
 
-        opt_launches, conv_step_launches = {}, {}
+        opt_launches, conv_step_launches, epi_step_launches = {}, {}, {}
 
         def step_run(name, alg="sgd", steps=STEP_RUNS, flops=False, **model):
             """(ms per step by CUDA events after 2 warm steps, peak GiB,
@@ -3110,6 +3321,8 @@ def main() -> int:
             stft_cuda.log_spectrogram_kernel.launches = 0
             optimizer_update.launches = 0
             conv_launches = (tower_conv.launches, conv_wgrad.launches)
+            te.train_epilogue_forward.launches = 0
+            te.train_epilogue_backward.launches = 0
             ev = [torch.cuda.Event(enable_timing=True)
                   for _ in range(steps + 1)]
             ev[0].record()
@@ -3127,13 +3340,23 @@ def main() -> int:
             conv_launches = (tower_conv.launches - conv_launches[0],
                              conv_wgrad.launches - conv_launches[1])
             conv_step_launches[name] = conv_launches
+            # and the epilogue after each of the 32 convolutions' calls, one
+            # forward and one backward call each
+            epi_launches = (te.train_epilogue_forward.launches,
+                            te.train_epilogue_backward.launches)
+            epi_step_launches[name] = epi_launches
             if model == {"compute_dtype": "float32"}:
                 check(conv_launches == (54 * steps, 32 * steps),
                       f"{name}: {conv_launches} training convolution "
                       f"launches in {steps} steps")
+                check(epi_launches == (32 * steps, 32 * steps),
+                      f"{name}: {epi_launches} training epilogue forward "
+                      f"and backward calls in {steps} steps")
             elif model.get("compute_dtype") == "bfloat16":
                 check(conv_launches == (0, 0), f"{name}: {conv_launches} "
                       "training convolution launches in bfloat16")
+                check(epi_launches == (0, 0), f"{name}: {epi_launches} "
+                      "training epilogue calls in bfloat16")
             # sgd and Adam: one update and one sum of squares a step
             opt_launches[alg] = optimizer_update.launches
             check(opt_launches[alg] == 2 * steps, f"{name}: "
@@ -3167,6 +3390,7 @@ def main() -> int:
                 f"{rec['peak']:.2f} GiB; {rec['launches']} kernel launches; "
                 f"on {smi}")
         opt_timings, opt_values = optimizer_kernel(dev, cycles_per_ms, smi)
+        epi_timings, epi_err = epilogue_kernels(dev, cycles_per_ms, smi)
 
         # the float32 step's gradients through the training kernels against
         # the modules' (cuDNN, TF32 off), and the modules' in TF32
@@ -3178,12 +3402,14 @@ def main() -> int:
         gaps = leaf_gaps(hand, modules)
         gaps_tf32 = leaf_gaps(tf32, modules)
         worst = max(gaps, key=gaps.get)
-        check(hand_count == 24, f"{hand_count} convolutions took the "
-              "training kernels, not 24")
+        check(hand_count == (24, 24), f"{hand_count[0]} convolutions and "
+              f"{hand_count[1]} epilogues took the training kernels, not 24 "
+              "of each")
         check(gaps[worst] <= STEP_GRAD_GAP, f"training kernels' gradient "
               f"of {worst}: {gaps[worst]:.3g} from the modules'")
         say(f"[12 hand step] separator, 64 windows, shipped weights: "
-            f"{hand_count} convolutions on the training kernels; forward "
+            f"{hand_count[0]} convolutions and {hand_count[1]} epilogues on "
+            "the training kernels; forward "
             f"and backward {step_ms[0]:.1f} ms, modules {step_ms[1]:.1f} ms "
             f"(CUDA events); gradients against the modules' by leaf: worst "
             f"{gaps[worst]:.3g} ({worst}), median "
@@ -3605,6 +3831,30 @@ def main() -> int:
                 "max_abs_err: params, mu and nu against the plain version "
                 f"(bit for bit); the squared sum within "
                 f"{t['norm_rel_err']:.2g} relative")})
+    for name, t in epi_timings.items():
+        kernels.append({
+            "name": f"train_epilogue (training, {name})",
+            "route": "cuda",
+            "source": "nhans_tpu_torch/csrc/train_epilogue.cu",
+            "replaces": "none: the JAX package leaves BatchNorm and the "
+                        "conditioning to XLA",
+            "launches": sum(epi_step_launches["float32 sgd"]),
+            "max_abs_err": t["err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "shape": t["shape"],
+            "note": (
+                f"launches: phase 12's last {STEP_RUNS} timed float32 sgd "
+                "steps, forward and backward calls (32 of each a step); "
+                "times: phase 12, one call's forward "
+                f"({t['forward_ms']:.4f}) and backward "
+                f"({t['backward_ms']:.4f}), [N, C, H, W, tables, residual] "
+                f"at {TRAIN_WINDOWS} windows, {t['calls']} calls a step; "
+                "plain_ms: train_epilogue_forward_plain and _backward_plain "
+                "on the card; library_ms: the modules' adds, BatchNorm in "
+                "training and ReLU under autograd, TF32 off; max_abs_err: "
+                "the worst error against the plain version over its bar "
+                "(a ratio, 1 = at the bar)")})
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(smi)
     say(json.dumps({"kernels": kernels}))

@@ -41,6 +41,7 @@ from nhans_tpu_torch.nn.blocks import (BatchNorm, Conv, Dense, frozen_stats,
 from nhans_tpu_torch.ops.tower_conv import (KERNEL_SHAPES, TrainConv,
                                             tower_conv)
 from nhans_tpu_torch.ops.tower_epilogue import tower_epilogue
+from nhans_tpu_torch.ops.train_epilogue import TrainEpilogue
 from nhans_tpu_torch.utils.device import to_device
 
 
@@ -71,7 +72,7 @@ class PositionalMLP(nn.Module):
 class ContextBlock(nn.Module):
     """Conv-BN-ReLU-conv residual block with a strided 1x1 shortcut when
     the channel count changes.  ``conv1`` and ``conv2`` run through
-    ``_train_conv``."""
+    ``_train_conv``, each epilogue through ``_train_epilogue``."""
 
     def __init__(self, in_features: int, features: int, kernel: Sequence[int],
                  strides: Sequence[int], bn_eps: float = 1e-3,
@@ -89,10 +90,10 @@ class ContextBlock(nn.Module):
         self.bn_out = BatchNorm(features, bn_eps, bn_decay, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        path1 = F.relu(self.bn1(_train_conv(self.conv1, x)))
+        path1 = _train_epilogue(self.bn1, _train_conv(self.conv1, x))
         path1 = _train_conv(self.conv2, path1)
         path2 = x if self.transform is None else self.transform(x)
-        return F.relu(self.bn_out(path1 + path2))
+        return _train_epilogue(self.bn_out, path1, residual=path2)
 
 
 class ContextEncoder(nn.Module):
@@ -145,9 +146,17 @@ class Inject(nn.Module):
                emb_b: torch.Tensor):
         """What ``forward`` adds to ``x``, unbroadcast: a, b [N, C],
         t [C, H] and f [C, W], for ``ops.tower_epilogue``."""
+        a, b, t, f = self.train_tables(x, emb_a, emb_b)
+        return a, b, t.t().contiguous(), f.t().contiguous()
+
+    def train_tables(self, x: torch.Tensor, emb_a: torch.Tensor,
+                     emb_b: torch.Tensor):
+        """What ``forward`` adds to ``x``, unbroadcast and as the layers
+        give it: a, b [N, C], t [H, C] and f [W, C], for
+        ``ops.train_epilogue``."""
         return (self.proj_a(emb_a), self.proj_b(emb_b),
-                self.temb(x.shape[2], x.device).t().contiguous(),
-                self.femb(x.shape[3], x.device).t().contiguous())
+                self.temb(x.shape[2], x.device),
+                self.femb(x.shape[3], x.device))
 
 
 class CondResBlock(nn.Module):
@@ -171,7 +180,8 @@ class CondResBlock(nn.Module):
     run through ``ops.tower_conv`` (``_conv`` says when), whose kernel sums
     in another order than cuDNN and whose plain version, which a CPU
     tensor takes, is ``Conv.forward``.  In training or with grad on, the
-    modules run."""
+    convolutions run through ``_train_conv`` and the epilogues through
+    ``_train_epilogue``."""
 
     def __init__(self, in_features: int, features: int, kernel: int,
                  stride: int, embedding_dim: int = 512, hidden: int = 50,
@@ -198,22 +208,20 @@ class CondResBlock(nn.Module):
 
     def _mask(self, y: torch.Tensor) -> torch.Tensor:
         """``y`` with the columns past the true width zeroed."""
-        if not self.freq_valid:
-            return y
-        keep = torch.arange(y.shape[3], device=y.device) < self.freq_out
-        return y * keep.to(y.dtype)
+        return _keep_columns(y, self.freq_out)
 
     def forward(self, x: torch.Tensor, emb_a: torch.Tensor,
                 emb_b: torch.Tensor) -> torch.Tensor:
         if not (self.training or torch.is_grad_enabled()):
             return self._fused(x, emb_a, emb_b)
         fv, fv1 = self.freq_valid or None, self.freq_out or None
-        path1 = self.inject1(_train_conv(self.conv1, x, fv), emb_a, emb_b)
-        path1 = self._mask(F.relu(self.bn1(path1)))
-        path1 = self.inject2(_train_conv(self.conv2, path1, fv1), emb_a,
-                             emb_b)
+        embs = (emb_a, emb_b)
+        path1 = _train_epilogue(self.bn1, _train_conv(self.conv1, x, fv),
+                                self.inject1, embs, valid=self.freq_out)
+        path1 = _train_conv(self.conv2, path1, fv1)
         path2 = x if self.transform is None else self.transform(x)
-        return self._mask(F.relu(self.bn_out(path1 + path2)))
+        return _train_epilogue(self.bn_out, path1, self.inject2, embs,
+                               path2, self.freq_out)
 
     def _fused(self, x: torch.Tensor, emb_a: torch.Tensor,
                emb_b: torch.Tensor) -> torch.Tensor:
@@ -249,22 +257,34 @@ def _conv(conv: Conv, x: torch.Tensor,
                       conv.pads(x, freq_size))
 
 
-# the sets that ``hand_convs`` collects into, innermost last
-_COLLECTING: list = []
-# the devices whose tensors ``_train_conv`` sends to the kernels
+# the sets that ``hand_convs`` and ``hand_epilogues`` collect into,
+# innermost last
+_COLLECTING = {"convs": [], "epilogues": []}
+# the devices whose tensors ``_train_conv`` and ``_train_epilogue`` send to
+# the kernels
 KERNEL_DEVICES = ("cuda",)
 
 
 @contextlib.contextmanager
-def hand_convs():
-    """Collects, into the set it yields, the convolutions that
-    ``_train_conv`` sends to the kernels while inside."""
+def _collect(kind: str):
     seen: set = set()
-    _COLLECTING.append(seen)
+    _COLLECTING[kind].append(seen)
     try:
         yield seen
     finally:
-        _COLLECTING.remove(seen)
+        _COLLECTING[kind].remove(seen)
+
+
+def hand_convs():
+    """Collects, into the set it yields, the convolutions that
+    ``_train_conv`` sends to the kernels while inside."""
+    return _collect("convs")
+
+
+def hand_epilogues():
+    """Collects, into the set it yields, the BatchNorms whose epilogues
+    ``_train_epilogue`` sends to the kernels while inside."""
+    return _collect("epilogues")
 
 
 def _train_conv(conv: Conv, x: torch.Tensor,
@@ -277,10 +297,52 @@ def _train_conv(conv: Conv, x: torch.Tensor,
     if not (torch.is_grad_enabled() and x.device.type in KERNEL_DEVICES
             and _kernel_takes(conv, x)):
         return conv(x, freq_size)
-    for seen in _COLLECTING:
+    for seen in _COLLECTING["convs"]:
         seen.add(conv)
     return TrainConv.apply(x, conv.w, conv.b, conv.strides,
                            conv.pads(x, freq_size))
+
+
+def _keep_columns(y: torch.Tensor, valid: int) -> torch.Tensor:
+    """``y`` times 0 at the columns ``valid`` and beyond (``valid`` 0:
+    ``y`` as it is)."""
+    if not valid:
+        return y
+    keep = torch.arange(y.shape[3], device=y.device) < valid
+    return y * keep.to(y.dtype)
+
+
+def _epilogue_modules(bn: BatchNorm, y: torch.Tensor,
+                      inject: Optional[Inject] = None, embs=(),
+                      residual: Optional[torch.Tensor] = None,
+                      valid: int = 0) -> torch.Tensor:
+    """``relu(bn(inject(y, *embs) [+ residual]))``, the columns at
+    ``valid`` and beyond zeroed, as the modules compute it."""
+    v = y if inject is None else inject(y, *embs)
+    if residual is not None:
+        v = v + residual
+    return _keep_columns(F.relu(bn(v)), valid)
+
+
+def _train_epilogue(bn: BatchNorm, y: torch.Tensor,
+                    inject: Optional[Inject] = None, embs=(),
+                    residual: Optional[torch.Tensor] = None,
+                    valid: int = 0) -> torch.Tensor:
+    """``_epilogue_modules``; with grad on, ``bn`` in training with the
+    moments of this rank's batch alone, on a CUDA tensor, in float32 input
+    and compute, through ``ops.train_epilogue.TrainEpilogue``: the forward
+    and backward on the hand-written kernels, the moments in float64.
+    Elsewhere the modules run as they are."""
+    if not (torch.is_grad_enabled() and bn.training and bn.group is None
+            and y.device.type in KERNEL_DEVICES
+            and y.dtype == torch.float32 and bn.dtype == torch.float32):
+        return _epilogue_modules(bn, y, inject, embs, residual, valid)
+    for seen in _COLLECTING["epilogues"]:
+        seen.add(bn)
+    tables = ((None,) * 4 if inject is None
+              else inject.train_tables(y, *embs))
+    return TrainEpilogue.apply(y, residual, *tables, bn.gamma, bn.beta, bn,
+                               valid)
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:

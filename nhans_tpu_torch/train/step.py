@@ -23,7 +23,10 @@ timed on the parameters' device) holding ``train.batch`` (the banked
 gather and ``make_train_batch``), ``train.forward`` (``train_loss``;
 counts ``hand_convs``, the convolutions of the model that ran on the
 hand-written training kernels, ``nn/model.py::_train_conv``: the 24 k x k
-ones of both towers on a card in float32, none on the CPU or in bfloat16),
+ones of both towers on a card in float32, none on the CPU or in bfloat16;
+and ``hand_epilogues``, the BatchNorms whose epilogues ran on them,
+``nn/model.py::_train_epilogue``: the 24 after those convolutions on a
+card in float32 without data parallelism, none on the CPU or in bfloat16),
 ``train.backward`` and ``train.update`` (the gradients, their all-reduce,
 the optimizer's in-place update and the global norm; counts ``params``,
 the values of the parameters, and ``fused_params``, those that
@@ -43,7 +46,8 @@ import torch.distributed as dist
 from nhans_tpu_torch.config import Config
 from nhans_tpu_torch.data.pipeline import make_train_batch
 from nhans_tpu_torch.models import init_variables
-from nhans_tpu_torch.nn.model import NHANSNet, freq_weighted_mse, hand_convs
+from nhans_tpu_torch.nn.model import (NHANSNet, freq_weighted_mse,
+                                      hand_convs, hand_epilogues)
 from nhans_tpu_torch.parallel.mesh import all_reduce_mean
 from nhans_tpu_torch.parallel.sharding_rules import model_shards, shard_model
 from nhans_tpu_torch.train.optim import (Optimizer, make_optimizer,
@@ -208,10 +212,12 @@ def make_train_step(cfg: Config, model: NHANSNet, tx: Optimizer,
                 n = ex["mixed"].shape[0]
                 rows = (mesh.data_index * n, mesh.data * n)
             with spans.span("train.forward", id=state.step,
-                            device=device) as s, hand_convs() as convs:
+                            device=device) as s, hand_convs() as convs, \
+                    hand_epilogues() as epilogues:
                 loss = train_loss(cfg, model, ex,
                                   generator if noise else None, mesh, rows)
-                s.count(hand_convs=len(convs))
+                s.count(hand_convs=len(convs),
+                        hand_epilogues=len(epilogues))
             with spans.span("train.backward", id=state.step, device=device):
                 loss.backward()
             with spans.span("train.update", id=state.step,

@@ -33,7 +33,8 @@ context embeddings, from the cache or encoded) and ``enhance.run``
 (``train/step.py``) records ``train.step`` (``id`` the step number, on
 the parameters' device) around ``train.batch``, ``train.forward`` (counts
 ``hand_convs``: the convolutions that took the hand-written training
-kernels), ``train.backward`` and ``train.update`` (counts ``params``: the
+kernels, and ``hand_epilogues``: the BatchNorms whose epilogues took
+them), ``train.backward`` and ``train.update`` (counts ``params``: the
 parameters' values, and ``fused_params``: those the optimizer's kernel
 updated).  The trainer adds
 ``train.iteration`` (fetch and step, by device time ``step_device_ms``)

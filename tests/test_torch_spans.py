@@ -303,8 +303,8 @@ def test_a_train_step_records_one_step_of_four_phases():
         ends = [whole.start_ns] + [x for s in inside
                                    for x in (s.start_ns, s.end_ns)]
         assert ends == sorted(ends) and ends[-1] <= whole.end_ns
-        # no convolution takes the training kernels on the CPU
-        assert inside[1].counts == {"hand_convs": 0}
+        # no convolution or epilogue takes the training kernels on the CPU
+        assert inside[1].counts == {"hand_convs": 0, "hand_epilogues": 0}
     assert len(got) == 2 * 5
 
 

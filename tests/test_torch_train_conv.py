@@ -476,9 +476,10 @@ def test_directions_against_float64_and_cudnn_on_card(i):
 @pytest.mark.gpu
 def test_full_step_gradients_against_the_modules_on_card():
     """The separator at full width, 64 windows, from the shipped weights:
-    24 convolutions take the kernels, and every leaf's gradient lies
-    within STEP_GRAD_GAP of the modules' (cuDNN, TF32 off), relative to
-    the larger of the leaf's norm and the median leaf's."""
+    24 convolutions and their epilogues take the kernels, and every
+    leaf's gradient lies within STEP_GRAD_GAP of the modules' (cuDNN, TF32
+    off), relative to the larger of the leaf's norm and the median
+    leaf's."""
     import os
 
     from nhans_tpu_torch.compat.weights import load_npz
@@ -489,7 +490,7 @@ def test_full_step_gradients_against_the_modules_on_card():
                                     "separator_q5_swa.npz"))
     hand, modules, count, _ = cs.hand_step(
         "cuda", Config.separator().model, weights)
-    assert count == 24
+    assert count == (24, 24)
     gaps = cs.leaf_gaps(hand, modules)
     worst = max(gaps, key=gaps.get)
     assert gaps[worst] <= cs.STEP_GRAD_GAP, (worst, gaps[worst])

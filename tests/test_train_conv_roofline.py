@@ -85,6 +85,9 @@ def test_yardstick_is_the_routed_convolutions_work(monkeypatch):
 
     monkeypatch.setattr(nn_model, "KERNEL_DEVICES", ("meta",))
     monkeypatch.setattr(tc.TrainConv, "apply", counting)
+    # the epilogues on the modules: their kernels take no meta tensor
+    monkeypatch.setattr(nn_model, "_train_epilogue",
+                        nn_model._epilogue_modules)
     with torch.device("meta"):
         model = NHANSNet(port_config(CFG).model).train()
         model(torch.zeros(1, 35, 201), torch.zeros(1, 200, 201),
