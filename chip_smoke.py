@@ -2168,6 +2168,13 @@ def time_train_convs(dev, cycles_per_ms, smi, convs):
         bound = sum(t["bound_ms"] * t["calls"] for _, t in rows)
         say(f"[4c train] a step's {d}: kernels {ours:.3f} ms, cuDNN "
             f"{lib:.3f} ms, bound {bound:.3f} ms on {smi}")
+    # the weight gradient's kernel time over the forward's, at each shape
+    ratio = {name: t["ms"] / timings[(name, "forward")]["ms"]
+             for (name, d), t in timings.items() if d == "weight"}
+    say("[4c train] weight gradient / forward kernel time: " + ", ".join(
+        f"{name} {r:.3f}" for name, r in ratio.items()) +
+        f"; at or under 1 at {sum(r <= 1 for r in ratio.values())} of "
+        f"{len(ratio)}")
     return timings
 
 

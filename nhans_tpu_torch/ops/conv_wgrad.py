@@ -8,8 +8,12 @@ and, with ``bias``, db = dy summed over all but the channel axis.  The
 kernel (``csrc/conv_wgrad.cu``) sums the products of dy and the unpadded
 x over the N x Ho x Wo positions in float32 multiply-adds, reading the
 pads as zeros, in slices that a second launch adds in order: no atomics,
-so that the result is the same bit for bit from run to run.
-``wgrad_slices`` chooses the slices from the shapes alone.  The plain
+so that the result is the same bit for bit from run to run.  A gradient
+of more than 32 columns (Cin x kh x kw) takes 32 positions a step on a
+128 x 128 tile (64 x 256 for a kernel 4 wide and at most 64 output
+channels); one of at most 32 (one input channel) takes 128 positions a
+step on a 64 x 16 or 64 x 32 tile.  ``tile`` gives the tile and
+``wgrad_slices`` the slices, both from the shapes alone.  The plain
 version is the same sum written with ``F.unfold``.
 
 A CPU tensor goes to the plain version and a CUDA tensor to the kernel;
@@ -31,27 +35,36 @@ from nhans_tpu_torch.ops import _build
 # the (kh, kw) the kernel is built for, as csrc/tower_conv.cu's forward
 KERNEL_SHAPES = ((3, 3), (4, 4), (8, 4))
 STEP = 32                  # positions a step of the kernel's sum
+NARROW_COLS = 32           # at most this many columns: the narrow kernel,
+NARROW_STEP = 128          # its positions a step
 MIN_STEPS = 8              # steps a slice at least
 SMS = 132                  # an H100's SMs: the slices fill whole waves
 WORKSPACE_BYTES = 64 * 2 ** 20
 
 
-def tile(cout: int) -> Tuple[int, int]:
-    """The kernel's (BM, BN) block tile for ``cout`` output channels."""
-    return (64, 256) if cout <= 64 else (128, 128)
+def tile(cout: int, cin: int, kernel: Sequence[int]) -> Tuple[int, int, int]:
+    """The kernel's (BM, BN) block tile and positions a step for ``cout``
+    output and ``cin`` input channels and a (kh, kw) ``kernel``."""
+    kh, kw = kernel
+    cols = cin * kh * kw
+    if cols <= NARROW_COLS:
+        return 64, (16 if cols <= 16 else 32), NARROW_STEP
+    return (64, 256, STEP) if kw == 4 and cout <= 64 else (128, 128, STEP)
 
 
 @functools.lru_cache(maxsize=None)
-def wgrad_slices(cout: int, cols: int, positions: int) -> Tuple[int, int]:
-    """(slices, positions a slice) of the sum over ``positions`` for a
-    [cout, cols] gradient: the fewest slices whose blocks fill waves of
-    ``SMS`` within 2 % as well as the best count allowed, with at least
-    ``MIN_STEPS`` steps a slice and the slices' partial sums (beyond one)
-    under ``WORKSPACE_BYTES``."""
-    bm, bn = tile(cout)
+def wgrad_slices(cout: int, cin: int, kernel: Tuple[int, int],
+                 positions: int) -> Tuple[int, int]:
+    """(slices, positions a slice) of the sum over ``positions`` for the
+    gradient of a (cout, cin, *kernel) weight: the fewest slices whose
+    blocks fill waves of ``SMS`` within 2 % as well as the best count
+    allowed, with at least ``MIN_STEPS`` steps a slice and the slices'
+    partial sums (beyond one) under ``WORKSPACE_BYTES``."""
+    bm, bn, step = tile(cout, cin, kernel)
+    cols = cin * kernel[0] * kernel[1]
     tiles = -(-cout // bm) * -(-cols // bn)
     most = max(1, min((WORKSPACE_BYTES - 1) // (4 * (cout * cols + cout)),
-                      positions // (STEP * MIN_STEPS)))
+                      positions // (step * MIN_STEPS)))
 
     def filled(s):
         return tiles * s / (-(-tiles * s // SMS) * SMS)
@@ -59,7 +72,7 @@ def wgrad_slices(cout: int, cols: int, positions: int) -> Tuple[int, int]:
     best = max(filled(s) for s in range(1, most + 1))
     s = next(s for s in range(1, most + 1) if filled(s) >= best - 0.02)
     per = -(-positions // s)                  # a slice's share, rounded up
-    per = -(-per // STEP) * STEP              # to whole steps
+    per = -(-per // step) * step              # to whole steps
     return -(-positions // per), per
 
 
@@ -122,10 +135,11 @@ def conv_wgrad(x: torch.Tensor, dy: torch.Tensor, kernel: Sequence[int],
     if x.device.type != "cuda":
         raise ValueError(f"no conv_wgrad kernel for device {x.device}")
     K, cols = N * Ho * Wo, Cin * kh * kw
-    if min(N, Ho, Wo) < 1 or max(K, x.numel(), dy.numel()) >= 2 ** 30:
+    if (min(N, Ho, Wo) < 1 or max(K, x.numel(), dy.numel()) >= 2 ** 30
+            or Cin * H * W >= 2 ** 26):
         raise ValueError(f"conv_wgrad: shape {tuple(x.shape)} -> "
                          f"{tuple(dy.shape)} is beyond the kernel")
-    S, per = wgrad_slices(Cout, cols, K)
+    S, per = wgrad_slices(Cout, Cin, (kh, kw), K)
     dw = torch.empty((Cout, Cin, kh, kw), dtype=x.dtype, device=x.device)
     db = torch.empty(Cout, dtype=x.dtype, device=x.device) if bias else None
     ws = (torch.empty(S * (Cout * cols + Cout), dtype=x.dtype,

@@ -10,7 +10,11 @@ within the float32 sum's bound of ``torch.nn.grad.conv2d_input`` in
 float64; the plain weight and bias gradients within that bound of
 ``conv2d_weight`` and of dy's sum; ``TrainConv``'s backward is those
 functions'; the slices of the weight gradient's sum cover it within the
-workspace; the wrapper refuses what the kernel does not take; and the
+workspace, and the layers of one input channel take the narrow kernel's
+tile of their width; the weight-gradient kernels' indexing, emulated in
+numpy (its division by multiplication too), is conv2d_weight's sum,
+through odd Ho x Wo, steps across rows and images and the narrow tiles;
+the wrapper refuses what the kernel does not take; and the
 training step on the CPU, in float32 and bfloat16, is today's bit for bit
 (the routing sends nothing to the kernels there), while with the CPU let
 through the routing sends exactly the 24 k x k convolutions of both
@@ -145,21 +149,38 @@ def test_plain_weight_and_bias_gradients_are_conv2d_weight(i):
 @pytest.mark.parametrize("i", range(len(CONVS)), ids=NAMES)
 def test_weight_gradient_slices_cover_the_sum(i):
     """At full width and 64 windows: the slices cover the sum over the
-    positions once, in whole steps of 32 and at least 8 steps each, their
+    positions once, in whole steps of the kernel's (32 positions, 128 for
+    the one-channel layers) and at least 8 steps each, their
     partial sums under 64 MB, and the blocks fill at least 90 % of their
     waves of 132 SMs where the sum is long enough to cut."""
     _, _, cin, cout, (kh, kw), stride, H, W, _, _ = CONVS[i]
     Ho = same_pads(H, kh, stride[0])[2]
     Wo = same_pads(W, kw, stride[1])[2]
     K, cols = 64 * Ho * Wo, cin * kh * kw
-    S, per = cw.wgrad_slices(cout, cols, K)
-    assert per % cw.STEP == 0 and S * per >= K > (S - 1) * per
-    assert S == 1 or per >= cw.STEP * cw.MIN_STEPS
+    S, per = cw.wgrad_slices(cout, cin, (kh, kw), K)
+    bm, bn, step = cw.tile(cout, cin, (kh, kw))
+    assert per % step == 0 and S * per >= K > (S - 1) * per
+    assert S == 1 or per >= step * cw.MIN_STEPS
     assert S == 1 or 4 * S * (cout * cols + cout) < 64 * 2 ** 20
-    bm, bn = cw.tile(cout)
     blocks = -(-cout // bm) * -(-cols // bn) * S
-    if K >= 132 * cw.STEP * cw.MIN_STEPS:
+    if K >= 132 * step * cw.MIN_STEPS:
         assert blocks / (-(-blocks // 132) * 132) >= 0.9
+
+
+def test_one_channel_layers_take_a_tile_of_their_width():
+    """The towers' first convolutions (one input channel: 16 or 32 columns)
+    take the narrow kernel's 64 x 16 or 64 x 32 tile and 128 positions a
+    step, every other of the 24 more than 32 columns and the wide tiles."""
+    for _, _, cin, cout, kernel, _, _, _, _, _ in CONVS:
+        cols = cin * kernel[0] * kernel[1]
+        bm, bn, step = cw.tile(cout, cin, kernel)
+        if cin == 1:
+            assert (bm, bn, step) == (64, cols, cw.NARROW_STEP)
+        else:
+            assert cols > cw.NARROW_COLS and step == cw.STEP
+            assert (bm, bn) == ((64, 256) if kernel[1] == 4 and cout <= 64
+                                else (128, 128))
+    assert sum(c[2] == 1 for c in CONVS) == 2
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
@@ -218,27 +239,147 @@ def test_train_conv_backward_is_its_functions(i, grads):
 
 # -- the weight-gradient kernel, emulated ------------------------------------
 
+def _div_magic(d):
+    """conv_wgrad.cu's Div: (m, shift) with floor(n / d) = n m >> shift."""
+    bits = 0
+    while (1 << bits) < d:
+        bits += 1
+    return ((1 << (31 + bits)) + d - 1) // d, 31 + bits
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 5, 7, 9, 10, 13, 17, 18, 26, 35,
+                               51, 67, 101, 201, 2 ** 20 + 1, 2 ** 30 - 1])
+def test_division_by_multiplication_is_exact(d):
+    """The kernel's divisions of a position by Wo and of an output row by
+    Ho: exact for every dividend below 2^31 (checked at the multiples of d
+    and their neighbours, the ends and random draws), and the product
+    within 64 bits."""
+    m, shift = _div_magic(d)
+    rng = np.random.default_rng(d)
+    top = 2 ** 31 - 1
+    qs = np.unique(np.concatenate([np.arange(0, 2000),
+                                   rng.integers(0, top // d + 1, 4000),
+                                   [top // d - 1, top // d]]))
+    ns = {0, top} | {int(v) for v in rng.integers(0, top, 4000)}
+    for qv in qs.tolist():
+        for n in (qv * d - 1, qv * d, qv * d + d - 1):
+            if 0 <= n <= top:
+                ns.add(n)
+    for n in ns:
+        assert (n * m) >> shift == n // d, n
+        assert n * m < 2 ** 64
+    assert m < 2 ** 33
+
+
+def _positions(k, Wo, Ho):
+    R = k // Wo
+    n = R // Ho
+    return R, n, R - n * Ho, k - R * Wo
+
+
+def _emulate_wide_step(xf, dyf, shape, geo, A, B, seen_a, seen_b, k0, ke):
+    """One step of conv_wgrad (more than 32 columns), as its threads copy
+    it: each thread's position q, A rows e + 4 h + 8 u and B columns
+    4 (h + 2 u) + e; for a kernel 4 wide each column from its channel,
+    kernel row and s = e, zero past J, else from its own (ci, r, s), a
+    column past J reading the last; a tap inside the image or a zero."""
+    N, Cin, H, W, Cout, Ho, Wo, KH, KW, sh, sw, pt, pl = shape
+    BM, BN, co0, j0 = geo
+    P, HW, T = Ho * Wo, H * W, KH * KW
+    J = Cin * T
+    tid = np.arange(256)
+    warp, lane = tid // 32, tid % 32
+    q, e, h = (lane & 7) + 8 * (warp & 3), lane >> 3, warp >> 2
+    k = k0 + q
+    k_ok = k < ke
+    R, n, ho, wo = _positions(k, Wo, Ho)
+    hi, wi = ho * sh - pt, wo * sw - pl
+    at = (n * Cout + co0 + e + 4 * h) * P + (k - n * P)
+    for u in range(BM // 8):
+        row = e + 4 * h + 8 * u
+        ok = k_ok & (co0 + row < Cout)
+        A[q, row] = np.where(ok, dyf[np.where(ok, at + 8 * u * P, 0)], 0.0)
+        seen_a[q, row] += 1
+    x0 = n * Cin * HW + hi * W + wi
+    for u in range(BN // 8):
+        j = j0 + 4 * (h + 2 * u) + e
+        if KW == 4:
+            assert j0 % T == 0
+            G = h + 2 * u
+            ci, r, s = j0 // T + G // KH, G % KH, e
+            live = j < J
+        else:
+            jj = np.minimum(J - 1, j)
+            ci, tap = jj // T, jj % T
+            r, s = tap // KW, tap % KW
+            live = True
+        ok = (k_ok & live & (hi + r >= 0) & (hi + r < H) & (wi + s >= 0)
+              & (wi + s < W))
+        src = x0 + ci * HW + r * W + s
+        B[q, j - j0] = np.where(ok, xf[np.where(ok, src, 0)], 0.0)
+        seen_b[q, j - j0] += 1
+
+
+def _emulate_narrow_step(xf, dyf, shape, co0, A, B, seen_a, seen_b, k0, ke):
+    """One step of conv_wgrad_narrow (at most 32 columns), as its threads
+    copy it: positions kk and kk + 64 of each thread, rows and columns
+    rr + 4 u, a tap inside the image or a zero."""
+    N, Cin, H, W, Cout, Ho, Wo, KH, KW, sh, sw, pt, pl = shape
+    P, HW, T = Ho * Wo, H * W, KH * KW
+    BN = B.shape[1]
+    tid = np.arange(256)
+    warp, lane = tid // 32, tid % 32
+    kk, rr = (lane & 7) + 8 * warp, lane >> 3
+    for h in range(2):
+        q = kk + 64 * h
+        k = k0 + q
+        k_ok = k < ke
+        R, n, ho, wo = _positions(k, Wo, Ho)
+        hi, wi = ho * sh - pt, wo * sw - pl
+        a_at = (n * Cout + co0 + rr) * P + (k - n * P)
+        for u in range(16):
+            ok = k_ok & (co0 + rr + 4 * u < Cout)
+            A[q, rr + 4 * u] = np.where(ok, dyf[np.where(ok, a_at + 4 * u * P,
+                                                         0)], 0.0)
+            seen_a[q, rr + 4 * u] += 1
+        for u in range(BN // 4):
+            j = rr + 4 * u
+            ci, tap = j // T, j % T
+            r, s = tap // KW, tap % KW
+            ok = (k_ok & (j < Cin * T) & (hi + r >= 0) & (hi + r < H)
+                  & (wi + s >= 0) & (wi + s < W))
+            src = n * Cin * HW + hi * W + wi + ci * HW + r * W + s
+            B[q, j] = np.where(ok, xf[np.where(ok, src, 0)], 0.0)
+            seen_b[q, j] += 1
+
+
 def _emulate_wgrad(x, dy, kernel, stride, pads, bias):
-    """conv_wgrad.cu's indexing in numpy, in float64: for each block and
-    slice, each thread's copies into the step's k-major tiles (each cell
-    written once, its position moved on by 32 a step as the kernel moves
-    it, checked against the division), the tile's product, the store of
-    the rows and columns inside the gradient, the bias rows' sums, and the
-    slices added in order; the sums' order aside, what the kernel
-    computes."""
+    """conv_wgrad.cu's indexing in numpy, in float64: the tile and slices
+    ``tile`` and ``wgrad_slices`` choose; for each block, slice and step
+    the kernel's copies and B tile (each cell of the A and B tiles written
+    once), for the narrow kernel each position taken by one group of
+    threads; the tile's product, the store of the rows and columns inside
+    the gradient, the bias rows' sums, and the slices added in order: the
+    sums' order aside, what the kernel computes."""
     N, Cin, H, W = x.shape
     Cout, Ho, Wo = dy.shape[1:]
     KH, KW = kernel
     sh, sw = stride
     pl, pr, pt, pb = pads
-    J, P, HW, BK = Cin * KH * KW, Ho * Wo, H * W, 32
-    K = N * P
-    S, per = cw.wgrad_slices(Cout, J, K)
-    BM, BN = cw.tile(Cout)
+    T = KH * KW
+    J, K = Cin * T, N * Ho * Wo
+    S, per = cw.wgrad_slices(Cout, Cin, (KH, KW), K)
+    BM, BN, BK = cw.tile(Cout, Cin, (KH, KW))
+    narrow = J <= cw.NARROW_COLS
+    shape = (N, Cin, H, W, Cout, Ho, Wo, KH, KW, sh, sw, pt, pl)
+    if narrow:
+        groups = 256 // ((BM // 8) * (BN // 8))
+        taken = np.zeros(BK, int)
+        for grp in range(groups):
+            taken[grp + groups * np.arange(BK // groups)] += 1
+        assert (taken == 1).all()
     xf, dyf = x.double().numpy().ravel(), dy.double().numpy().ravel()
     ws, wsb = np.full((S, Cout, J), np.nan), np.full((S, Cout), np.nan)
-    tid = np.arange(256)
-    warp, kk, rr = tid // 32, tid % 32 & 7, tid % 32 >> 3
     j_tiles = -(-J // BN)
     for blk in range(-(-Cout // BM) * j_tiles):
         j0, co0 = (blk % j_tiles) * BN, (blk // j_tiles) * BM
@@ -248,54 +389,16 @@ def _emulate_wgrad(x, dy, kernel, stride, pads, bias):
             steps = -(-(ke - kb) // BK)
             A, B = np.zeros((steps * BK, BM)), np.zeros((steps * BK, BN))
             seen_a, seen_b = np.zeros(A.shape, int), np.zeros(B.shape, int)
-            pos = []
-            for g in range(4):
-                k = kb + kk + 8 * g
-                n = k // P
-                ho = (k - n * P) // Wo
-                pos.append([k, n, ho, k - n * P - ho * Wo])
             for step in range(steps):
-                for g in range(4):
-                    k, n, ho, wo = pos[g]
-                    q = k - n * P
-                    assert (n == k // P).all() and (ho * Wo + wo == q).all()
-                    ok_k = k < ke
-                    hi, wi = ho * sh - pt, wo * sw - pl
-                    # the kernel rows and columns inside, as bit masks
-                    r0 = np.minimum(KH, np.maximum(0, -hi))
-                    r1 = np.maximum(r0, np.minimum(KH, H - hi))
-                    s0 = np.minimum(KW, np.maximum(0, -wi))
-                    s1 = np.maximum(s0, np.minimum(KW, W - wi))
-                    live = np.where(ok_k, ((1 << r1) - (1 << r0))
-                                    | (((1 << s1) - (1 << s0)) << 8), 0)
-                    row = step * BK + kk + 8 * g
-                    for u in range(BM // 32):
-                        r_ = rr + 4 * warp + 32 * u
-                        ok = ok_k & (co0 + r_ < Cout)
-                        src = np.where(ok, (n * Cout + co0 + r_) * P + q, 0)
-                        A[row, r_] = np.where(ok, dyf[src], 0.0)
-                        seen_a[row, r_] += 1
-                    for u in range(BN // 32):
-                        c = rr + 4 * warp + 32 * u
-                        j = j0 + c
-                        ci, tap = j // (KH * KW), j % (KH * KW)
-                        r, s = tap // KW, tap % KW
-                        bits = np.where(j < J, (1 << r) | (1 << (8 + s)),
-                                        0xFFFFFFFF)
-                        ok = (bits & live) == bits
-                        src = np.where(ok, n * Cin * HW + hi * W + wi
-                                       + ci * HW + r * W + s, 0)
-                        B[row, c] = np.where(ok, xf[src], 0.0)
-                        seen_b[row, c] += 1
-                    # the kernel's move by 32 positions
-                    k, n, ho, wo = k + BK, n.copy(), ho.copy(), wo + BK
-                    while (wo >= Wo).any():
-                        over = wo >= Wo
-                        wo = np.where(over, wo - Wo, wo)
-                        ho = np.where(over, ho + 1, ho)
-                        wrap = over & (ho == Ho)
-                        ho, n = np.where(wrap, 0, ho), np.where(wrap, n + 1, n)
-                    pos[g] = [k, n, ho, wo]
+                rows = slice(step * BK, (step + 1) * BK)
+                if narrow:
+                    _emulate_narrow_step(xf, dyf, shape, co0, A[rows], B[rows],
+                                         seen_a[rows], seen_b[rows],
+                                         kb + step * BK, ke)
+                else:
+                    _emulate_wide_step(xf, dyf, shape, (BM, BN, co0, j0),
+                                       A[rows], B[rows], seen_a[rows],
+                                       seen_b[rows], kb + step * BK, ke)
             assert (seen_a == 1).all() and (seen_b == 1).all()
             tile_ = A.T @ B
             rows = min(BM, Cout - co0)
@@ -312,13 +415,18 @@ def _emulate_wgrad(x, dy, kernel, stride, pads, bias):
 
 
 @pytest.mark.parametrize("cin,cout,kernel,stride,H,W,N", [
-    (3, 5, (8, 4), (3, 2), 20, 21, 9),      # 64 x 256, 2 slices
+    (3, 5, (8, 4), (3, 2), 20, 21, 9),      # 64 x 256, steps over 4 rows
     (3, 70, (8, 4), (1, 1), 9, 11, 4),      # 128 x 128, 2 row tiles
-    (1, 6, (4, 4), (1, 1), 13, 29, 2),      # one input channel
-    (2, 64, (4, 4), (2, 2), 17, 23, 5),     # stride 2
-    (30, 8, (3, 3), (1, 1), 5, 26, 6),      # 3 x 3, two column tiles
+    (1, 6, (4, 4), (1, 1), 13, 29, 2),      # one input channel: 64 x 16
+    (2, 64, (4, 4), (2, 2), 17, 23, 5),     # 32 columns: 64 x 32
+    (3, 64, (4, 4), (2, 2), 17, 23, 5),     # stride 2, odd W, 64 x 256
+    (30, 8, (3, 3), (1, 1), 5, 26, 6),      # 3 x 3: 128 x 128, 3 column tiles
     (4, 130, (3, 3), (2, 2), 9, 51, 2),     # 2 row tiles, 2 left over
     (3, 9, (4, 4), (1, 2), 23, 51, 2),      # stride (1, 2), Wo 26
+    (3, 5, (4, 4), (1, 1), 35, 201, 2),     # odd Ho x Wo, steps across images
+    (1, 64, (4, 4), (1, 1), 35, 201, 2),    # the main tower's one channel
+    (1, 64, (8, 4), (3, 2), 200, 201, 1),   # the context tower's one channel
+    (2, 3, (3, 3), (1, 1), 7, 9, 3),        # 18 columns, 3 x 3: 64 x 32
 ])
 def test_weight_gradient_kernel_emulation_is_conv2d_weight(
         cin, cout, kernel, stride, H, W, N):
